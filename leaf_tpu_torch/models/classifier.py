@@ -77,9 +77,13 @@ class Classifier(nn.Module):
         self.features = get_frontend(cfg, device, generator)
         self.model = get_classifier(cfg["model"], device, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Waveforms → logits. In train mode (``.train()``) BatchNorm uses
+        batch statistics and updates its running stats, and dropout and
+        drop-connect draw from ``generator`` (on x's device)."""
         out = self.features(x)                      # (B, frames, n_filters)
-        return self.model(out.transpose(1, 2)[..., None])
+        return self.model(out.transpose(1, 2)[..., None], generator)
 
     def features_only(self, x: torch.Tensor) -> torch.Tensor:
         """LEAF features without the backbone — the reference's

@@ -9,7 +9,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Conv2dSame", "global_avg_pool", "lecun_normal_init_"]
+__all__ = ["BatchNorm2d", "Conv2dSame", "drop_connect", "dropout",
+           "global_avg_pool", "lecun_normal_init_"]
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with Flax's training semantics, under torch's names.
+
+    In train mode it normalises with the batch mean and the biased batch
+    variance (as torch does) and updates the running stats as
+    ``flax.linen.BatchNorm`` does: ``var ← (1−m)·var + m·biased_var`` with
+    torch's ``momentum`` m (Flax's momentum 0.99 is m = 0.01).
+    ``torch.nn.BatchNorm2d`` would put the unbiased variance there. Eval
+    mode is torch's. The state_dict keys are torch's, so weights load and
+    export unchanged.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 class Conv2dSame(nn.Conv2d):
@@ -31,6 +56,36 @@ class Conv2dSame(nn.Conv2d):
             x = F.pad(x, pads)
         return F.conv2d(x, self.weight, self.bias, self.stride, 0,
                         self.dilation, self.groups)
+
+
+def _keep_mask(shape, rate: float, x: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Bernoulli(1 − rate) as ``uniform < 1 − rate``, as jax.random does."""
+    return torch.rand(shape, generator=generator, device=x.device,
+                      dtype=torch.float32) < 1.0 - rate
+
+
+def drop_connect(x: torch.Tensor, rate: float,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth: drop the whole residual branch per sample.
+
+    Bernoulli(keep = 1 − rate) per batch element, kept rows scaled by
+    1/keep (the JAX package's ``drop_connect``, after reference
+    models/efficientnet/utils.py:129-154). ``generator`` lives on x's
+    device; None takes that device's default generator.
+    """
+    keep = _keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), rate, x, generator)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Elementwise dropout as ``flax.linen.Dropout``: keep with
+    probability 1 − rate, kept values scaled by 1/(1 − rate)."""
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = _keep_mask(x.shape, rate, x, generator)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""EfficientNet (b0–b8, l2) in PyTorch, eval path.
+"""EfficientNet (b0–b8, l2) in PyTorch, train and eval.
 
 Capability parity with the JAX package's ``leaf_tpu.models.efficientnet``
 and the reference's vendored lukemelas EfficientNet (reference:
 models/efficientnet/model.py + utils.py): the block-string DSL, compound
 scaling ``round_filters``/``round_repeats``, MBConv with squeeze-excite,
-BN momentum 0.99 (torch momentum 0.01) / eps 1e-3, dropout before the
-final linear.
+BN momentum 0.99 (torch momentum 0.01) / eps 1e-3 with Flax's running
+variance (``common.BatchNorm2d``), stochastic depth scaled by block
+index on identity-skip blocks, dropout before the final linear.
 
 Layout: the model's input is the NHWC (B, H, W, C) image the JAX
 ``Classifier`` builds; it is permuted once to NCHW, which the rest runs
@@ -13,7 +14,11 @@ in. Stride-2 convolutions use TF-SAME padding (``Conv2dSame``). Module
 and parameter names are the reference's (``_conv_stem``, ``_bn0``,
 ``_blocks.N._expand_conv`` …), so ``leaf_tpu.models.torch_import``
 carries a port ``state_dict`` into the JAX model unchanged.
-Stochastic depth (``drop_connect``) belongs to the training slice.
+
+Train mode (``model.train()``) draws dropout and drop-connect masks from
+the ``generator`` passed to ``forward`` (None: the device's default
+generator); its numbers differ from the JAX package's PRNG streams, so
+the tests hold them by their distributions.
 """
 
 from __future__ import annotations
@@ -27,8 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from leaf_tpu_torch.models.common import (Conv2dSame, global_avg_pool,
-                                          lecun_normal_init_)
+from leaf_tpu_torch.models.common import (BatchNorm2d, Conv2dSame,
+                                          drop_connect, dropout,
+                                          global_avg_pool, lecun_normal_init_)
 
 __all__ = [
     "BlockArgs",
@@ -160,10 +166,10 @@ def get_model_params(model_name: str, num_classes: int = 1000,
     return blocks, gp
 
 
-def _bn(channels: int, momentum: float, eps: float, device) -> nn.BatchNorm2d:
+def _bn(channels: int, momentum: float, eps: float, device) -> BatchNorm2d:
     # Flax's momentum m keeps m of the old running value; torch's keeps 1 − m.
-    return nn.BatchNorm2d(channels, eps=eps, momentum=1.0 - momentum,
-                          device=device)
+    return BatchNorm2d(channels, eps=eps, momentum=1.0 - momentum,
+                       device=device)
 
 
 class MBConvBlock(nn.Module):
@@ -194,7 +200,8 @@ class MBConvBlock(nn.Module):
                                        device=device)
         self._bn2 = bn(ba.output_filters)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop_connect_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         ba = self.block_args
         inputs = x
         if ba.expand_ratio != 1:
@@ -211,6 +218,8 @@ class MBConvBlock(nn.Module):
         x = self._bn2(self._project_conv(x))
         if (ba.id_skip and ba.stride == 1
                 and ba.input_filters == ba.output_filters):
+            if self.training and drop_connect_rate:
+                x = drop_connect(x, drop_connect_rate, generator)
             x = x + inputs
         return x
 
@@ -233,6 +242,7 @@ class EfficientNet(nn.Module):
                                            num_classes=num_classes,
                                            **overrides)
         self.drop_connect_rate = gp.drop_connect_rate
+        self.dropout_rate = gp.dropout_rate
         bn = lambda c: _bn(c, gp.batch_norm_momentum,  # noqa: E731
                            gp.batch_norm_epsilon, device)
 
@@ -262,18 +272,18 @@ class EfficientNet(nn.Module):
         self._conv_head = nn.Conv2d(blocks[-1].block_args.output_filters,
                                     head, 1, bias=False, device=device)
         self._bn1 = bn(head)
-        self._dropout = nn.Dropout(gp.dropout_rate)
         self._fc = nn.Linear(head, num_classes, device=device)
         lecun_normal_init_(self, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.drop_connect_rate:
-            raise NotImplementedError(
-                "EfficientNet training (drop_connect) belongs to the port's "
-                "training slice; call .eval() to run inference")
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).contiguous()  # NHWC → NCHW, once
         x = F.silu(self._bn0(self._conv_stem(x)))
-        for block in self._blocks:
-            x = block(x)
-        x = F.silu(self._bn1(self._conv_head(x)))
-        return self._fc(self._dropout(global_avg_pool(x)))
+        n = len(self._blocks)
+        for idx, block in enumerate(self._blocks):
+            # linearly scaled stochastic depth (reference model.py:262-264)
+            x = block(x, self.drop_connect_rate * idx / n, generator)
+        x = global_avg_pool(F.silu(self._bn1(self._conv_head(x))))
+        if self.training and self.dropout_rate:
+            x = dropout(x, self.dropout_rate, generator)
+        return self._fc(x)

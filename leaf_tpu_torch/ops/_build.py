@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernels (nvcc → shared library → ctypes).
+"""Build and load the port's CUDA kernels (nvcc → shared libraries → ctypes).
 
 The kernels have a plain C interface, so they build with ``nvcc`` alone in
 seconds (no PyTorch headers) and bind with ``ctypes``. The build happens
-at first use, from the sources in ``csrc/``, into ``build/`` beside this
-file (listed in ``.gitignore``). The library's name carries a hash of the
-source and flags, so an edited source builds anew and a finished build is
-reused by later processes.
+at first use, from the sources in ``csrc/`` (one ``nvcc`` per source, all
+started together), into ``build/`` beside this file (listed in
+``.gitignore``). Each library's name carries a hash of its source and the
+flags, so an edited source builds anew and a finished build is reused by
+later processes.
 """
 
 from __future__ import annotations
@@ -20,29 +21,39 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "BUILD_DIR", "SOURCE"]
+__all__ = ["load_library", "BUILD_DIR", "SOURCES"]
 
 _HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "fused_frontend.cu"
+# library name → source: the forward kernels (primal and residual-saving)
+# and the backward kernel
+SOURCES = {"fwd": _HERE / "csrc" / "fused_frontend.cu",
+           "bwd": _HERE / "csrc" / "fused_frontend_bwd.cu"}
 BUILD_DIR = _HERE / "build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# C entry point → argument types (all return the launch's CUDA error code)
+_SIGNATURES = {
+    "fwd": {"leaf_fused_fwd_f32": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+            "leaf_fused_fwd_save_f32": [_PTR] * 5 + [_INT] * 4 + [_PTR]},
+    "bwd": {"leaf_fused_bwd_f32": [_PTR] * 6 + [_INT] * 5 + [_PTR]},
+}
 
 
 class KernelLibrary:
-    """The loaded library, with what its build printed and took."""
+    """The loaded libraries, with what their builds printed and took."""
 
-    def __init__(self, lib: ctypes.CDLL, path: Path, build_log: str,
+    def __init__(self, libs: dict, paths: dict, build_log: str,
                  build_seconds: float):
-        self.lib = lib
-        self.path = path
+        self.paths = paths                  # library name → .so path
         self.build_log = build_log          # nvcc/ptxas output ("" if cached)
-        self.build_seconds = build_seconds  # 0.0 when an earlier build was reused
-        fn = lib.leaf_fused_fwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        self.fused_fwd_f32 = fn
+        self.build_seconds = build_seconds  # 0.0 when earlier builds were reused
+        for name, fns in _SIGNATURES.items():
+            for sym, argtypes in fns.items():
+                fn = getattr(libs[name], sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                setattr(self, sym.removeprefix("leaf_"), fn)
 
 
 def _nvcc() -> str:
@@ -55,28 +66,45 @@ def _nvcc() -> str:
                        "with the CUDA toolkit (PATH or CUDA_HOME)")
 
 
+def _target(name: str) -> Path:
+    src = SOURCES[name].read_bytes()
+    digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libleaf_{name}_{digest}.so"
+
+
 @functools.cache
 def load_library() -> KernelLibrary:
-    """Build (once per source version) and load the kernel library."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libleaf_kernels_{digest}.so"
+    """Build (once per source version) and load the kernel libraries."""
+    paths = {name: _target(name) for name in SOURCES}
+    missing = [name for name, out in paths.items() if not out.exists()]
     log, seconds = "", 0.0
-    if not out.exists():
+    if missing:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
+        nvcc = _nvcc()
         t0 = time.perf_counter()
+        jobs = {}
         try:
-            proc = subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, str(SOURCE)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, out)  # atomic: concurrent builders never clash
+            for name in missing:
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                jobs[name] = (tmp, subprocess.Popen(
+                    [nvcc, *_FLAGS, "-o", tmp, str(SOURCES[name])],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            for name, (tmp, proc) in jobs.items():
+                out, _ = proc.communicate()
+                log += f"[{SOURCES[name].name}]\n{out}"
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {SOURCES[name].name} "
+                                       f"({proc.returncode}):\n{out}")
+                os.replace(tmp, paths[name])  # atomic: builders never clash
         finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            for tmp, proc in jobs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-    return KernelLibrary(ctypes.CDLL(str(out)), out, log, seconds)
+    libs = {name: ctypes.CDLL(str(out)) for name, out in paths.items()}
+    return KernelLibrary(libs, paths, log, seconds)

@@ -1,8 +1,11 @@
 // Fused Gabor conv -> squared modulus -> Gaussian lowpass, forward, f32.
 //
-// Replaces leaf_tpu/ops/fused_frontend.py:_fwd_kernel (the primal variant,
-// save_out=False) together with the XLA glue around it (_toeplitz_full,
-// _build_selectors, _combine_partials). It computes, directly,
+// Replaces leaf_tpu/ops/fused_frontend.py:_fwd_kernel in both its variants
+// together with the XLA glue around it (_toeplitz_full, _build_selectors,
+// _combine_partials): the primal one (save_out=False, kSave = false here)
+// and the residual-saving one of the custom VJP (save_out=True, kSave =
+// true), which also writes the conv outputs for the backward kernel
+// (fused_frontend_bwd.cu). It computes, directly,
 //
 //   out[b, f, c] = sum_k win[c, k] * S[b, 160 f + k - 200, c]
 //   S[b, t, c]   = (sum_j xpad[b, t + j] g_re[j, c])^2
@@ -26,6 +29,17 @@
 // frames' window sums. Neighbouring frame tiles recompute the 241 S
 // positions their windows share (~12% extra conv work at kFrames = 20) so
 // that no block depends on another and the sums are deterministic.
+//
+// kSave: the block also writes the conv outputs it computed to
+// conv_out (B, 2F, T) [re channels | im channels], channel-major so that a
+// warp's 32 consecutive positions of one channel are one 128-byte store.
+// Only positions the block OWNS are written, [160 f0, 160 (f0 + kFrames))
+// clipped to [0, T): the 241 shared positions that a neighbouring tile
+// recomputes are written once, by one block, and the union over blocks is
+// exactly [0, T). The writes add 2 * B * T * 2F * 4 bytes (1.31 GB at
+// B=256, T=16000, F=40, ~0.4 ms at 3.35 TB/s) under the conv's ~3.9 ms of
+// f32 operations; the JAX package's VJP saves rather than recomputes for
+// the same reason (the backward would repeat the 2.6e11 conv operations).
 
 #include <cuda_runtime.h>
 
@@ -51,11 +65,13 @@ constexpr size_t kSmemBytes =
                              + kPairs * kTaps      // windows, [pair][tap]
                              + kXsLen);            // waveform span + halo
 
+template <bool kSave>
 __global__ void __launch_bounds__(kThreads)
 fused_fwd_f32_kernel(const float* __restrict__ x,        // (B, T)
                      const float* __restrict__ gabor,    // (401, 2F) [re | im]
                      const float* __restrict__ windows,  // (F, 401)
                      float* __restrict__ out,            // (B, n_frames, F)
+                     float* __restrict__ conv_out,       // (B, 2F, T), kSave only
                      int T, int F, int n_frames) {
   extern __shared__ float4 smem[];
   float4* gs = smem;                                     // 4 float4 per tap
@@ -70,6 +86,8 @@ fused_fwd_f32_kernel(const float* __restrict__ x,        // (B, T)
   const int s_lo = f0 * kHop - kPadL;  // first S position this block's windows read
   const int frames_here = min(kFrames, n_frames - f0);
   const int span = kHop * (frames_here - 1) + kTaps;
+  // conv positions this block owns (kSave): its frames' hops, within [0, T)
+  const int own_lo = f0 * kHop, own_hi = min((f0 + kFrames) * kHop, T);
 
   // Stage the bank (zero columns past F), the windows and the waveform.
   float* gsf = reinterpret_cast<float*>(gs);
@@ -138,6 +156,16 @@ fused_fwd_f32_kernel(const float* __restrict__ x,        // (B, T)
 #pragma unroll
       for (int c = 0; c < kPairs; ++c)
         ss[q * kPairs + c] = valid ? re[p][c] * re[p][c] + im[p][c] * im[p][c] : 0.f;
+      if (kSave && t0 + q >= own_lo && t0 + q < own_hi) {
+        float* col = conv_out + (size_t)b * 2 * F * T + t0 + q;
+#pragma unroll
+        for (int c = 0; c < kPairs; ++c) {
+          if (c0 + c < F) {
+            col[(size_t)(c0 + c) * T] = re[p][c];
+            col[(size_t)(F + c0 + c) * T] = im[p][c];
+          }
+        }
+      }
     }
     __syncthreads();
 
@@ -169,21 +197,39 @@ fused_fwd_f32_kernel(const float* __restrict__ x,        // (B, T)
 
 }  // namespace
 
-// Launches the kernel on `stream`. All pointers are device pointers to
-// contiguous f32 arrays of the shapes noted on the kernel; the caller
-// checks them. Returns the CUDA error code of the launch (0 on success).
-extern "C" int leaf_fused_fwd_f32(const void* x, const void* gabor,
-                                  const void* windows, void* out, int batch,
-                                  int T, int F, int n_frames, void* stream) {
+// Launch the primal (conv_out == nullptr) or the residual-saving kernel on
+// `stream`. All pointers are device pointers to contiguous f32 arrays of
+// the shapes noted on the kernel; the caller checks them. Returns the CUDA
+// error code of the launch (0 on success).
+template <bool kSave>
+static int launch_fwd(const void* x, const void* gabor, const void* windows,
+                      void* out, void* conv_out, int batch, int T, int F,
+                      int n_frames, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_fwd_f32_kernel<kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n_frames + kFrames - 1) / kFrames, (F + kPairs - 1) / kPairs,
                   batch);
-  fused_fwd_f32_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+  fused_fwd_f32_kernel<kSave><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(gabor),
-      static_cast<const float*>(windows), static_cast<float*>(out), T, F,
-      n_frames);
+      static_cast<const float*>(windows), static_cast<float*>(out),
+      static_cast<float*>(conv_out), T, F, n_frames);
   return (int)cudaGetLastError();
+}
+
+extern "C" int leaf_fused_fwd_f32(const void* x, const void* gabor,
+                                  const void* windows, void* out, int batch,
+                                  int T, int F, int n_frames, void* stream) {
+  return launch_fwd<false>(x, gabor, windows, out, nullptr, batch, T, F,
+                           n_frames, stream);
+}
+
+// As leaf_fused_fwd_f32, and also writes conv_out (B, 2F, T).
+extern "C" int leaf_fused_fwd_save_f32(const void* x, const void* gabor,
+                                       const void* windows, void* out,
+                                       void* conv_out, int batch, int T, int F,
+                                       int n_frames, void* stream) {
+  return launch_fwd<true>(x, gabor, windows, out, conv_out, batch, T, F,
+                          n_frames, stream);
 }

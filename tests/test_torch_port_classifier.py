@@ -183,5 +183,11 @@ class TestFactory:
         assert all(torch.equal(a[k], b[k]) for k in a)
         assert not torch.equal(a["model._fc.weight"],
                                build(1).state_dict()["model._fc.weight"])
-        with pytest.raises(NotImplementedError, match="training slice"):
-            build(0)(torch.zeros(1, 16000))  # modules start in train mode
+        # modules start in train mode: BN on batch statistics, dropout and
+        # drop-connect drawn from the generator
+        m = build(0)
+        x = torch.from_numpy(np.random.RandomState(4).randn(2, 16000)
+                             .astype("float32") * 0.1)
+        logits = m(x, torch.Generator().manual_seed(0))
+        assert m.training and logits.shape == (2, 35)
+        assert bool(torch.isfinite(logits).all())

@@ -243,12 +243,14 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    """No module of the port, nor chip_smoke.py, imports the JAX stack or
-    the JAX package (an AST scan: the interpreter may have jax loaded)."""
+    """No module of the port, nor chip_smoke.py, imports the JAX stack,
+    sklearn or the JAX package (an AST scan: the interpreter may have jax
+    loaded; the card's machine has none of them)."""
     sources = sorted((REPO / "leaf_tpu_torch").rglob("*.py"))
     sources.append(REPO / "chip_smoke.py")
     assert len(sources) > 10
-    banned = {"jax", "jaxlib", "flax", "optax", "leaf_tpu"}
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
+              "leaf_tpu"}
     bad = [(p.name, m) for p in sources for m in _imports(p)
            if m.split(".")[0] in banned]
     assert not bad, bad
