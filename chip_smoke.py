@@ -6,13 +6,15 @@ around this file. Phases, in order; any failure exits non-zero and prints
 no result. TF32 is off throughout (cuDNN and matmul).
 
 1. build        — compile the port's CUDA kernels from
-                  ``leaf_tpu_torch/ops/csrc`` (one nvcc per source, together)
+                  ``leaf_tpu_torch/ops/csrc`` (one nvcc per source, together);
+                  count the tensor-core instructions (HGMMA/HMMA) in the
+                  backward library's SASS (``cuobjdump -sass``): none fails
 2. parity       — primal forward kernel vs its plain PyTorch version,
                   B=256, F=40, T ∈ {16000, 12345, 48000}
 3. parity-train — the residual-saving forward kernel (out and OUT) and the
                   backward kernel (d_bank, d_windows) vs their plain
                   versions and vs autograd through the plain forward, at
-                  the same shapes
+                  the same shapes; two backward launches bit-equal
 4. serving      — the flagship LEAF + EfficientNet-b0 classifier (seeded
                   random weights) answers requests of 3, 8, 64 and 100 clips
                   through ``ServingModel`` with buckets (8, 64); one primal
@@ -39,6 +41,8 @@ no result. TF32 is off throughout (cuDNN and matmul).
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -65,8 +69,10 @@ KERNEL_RTOL, KERNEL_ATOL_REL = 1e-4, 1e-6
 LOGIT_TOL = 1e-3
 # gradients, backward kernel vs plain: ‖k − p‖ ≤ GRAD_REL_TOL·‖p‖ and
 # max|k − p| ≤ GRAD_REL_TOL·max|p|. d_bank sums B·T ≈ 4.1e6 products per
-# entry in other orders (per-thread runs of 8192, then 512 partials); the
-# expected f32 rounding is a few 1e-6 of the norm.
+# entry on the tensor cores in 3×TF32 (each product keeps ~22 bits; the
+# wgmma accumulator, whose error grows with the positions it adds, is
+# flushed into f32 every 2048 positions), ~1.5e-5 of the norm at the
+# flagship shape.
 GRAD_REL_TOL = 1e-4
 # the train recipe (cfg opt section): Adam lr 1e-3, coupled L2 1e-4,
 # warm-up cosine over 10 of 40 epochs of SpeechCommands' 84843 clips
@@ -96,6 +102,7 @@ LOSS_TOL, UPDATE_TOL, STATS_TOL, FRONTEND_TOL = 1e-4, 3e-2, 1e-3, 1e-2
 TIMED_STEPS = 12
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 F32_PEAK_FLOPS = 67e12
+TF32_PEAK_FLOPS = 494.7e12  # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -117,6 +124,15 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _sass_counts(path) -> dict:
+    """Tensor-core instructions in a library's SASS (cuobjdump -sass)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: sass.count(op + ".") for op in ("HGMMA", "HMMA")}
+
+
 def phase_build():
     from leaf_tpu_torch.ops._build import load_library
     lib = load_library()
@@ -124,8 +140,12 @@ def phase_build():
         f"{lib.build_seconds:.2f} s")
     for line in lib.build_log.splitlines():
         if ("registers" in line or "spill" in line or "smem" in line
-                or line.startswith("[")):
+                or "C75" in line or line.startswith("[")):
             log(f"[build] {line.strip()}")
+    counts = _sass_counts(lib.paths["bwd"])
+    log(f"[build] backward SASS tensor-core instructions: {counts}")
+    if not sum(counts.values()):
+        raise AssertionError("the backward library holds no HGMMA/HMMA")
 
 
 def leaf_operands(device):
@@ -231,8 +251,15 @@ def phase_parity_train(device):
         d_out = torch.from_numpy(
             rng.randn(*out.shape).astype(np.float32)).to(device)
         d_bank, d_win = fused_backward_cuda(x, conv, windows, d_out)
+        again = fused_backward_cuda(x, conv, windows, d_out)
         p_bank, p_win = fused_backward_reference(x, conv, windows, d_out)
         torch.cuda.synchronize()
+        same = (torch.equal(d_bank, again[0])
+                and torch.equal(d_win, again[1]))
+        log(f"[parity-train] bwd T={t}: two launches bit-equal: {same}")
+        if not same:
+            raise AssertionError(f"backward is not deterministic at T={t}")
+        del again
         # autograd through the plain forward, x not requiring a gradient
         b_ = bank.clone().requires_grad_()
         w_ = windows.clone().requires_grad_()
@@ -476,8 +503,10 @@ def profile_requests(server, req, latency_ms: float, n: int = 5) -> None:
         log(f"[profile]   {ms:.3f} ms  x{count}  {name[:90]}")
 
 
-def _bound(flops: float, nbytes: float) -> dict:
-    flop_ms = flops / F32_PEAK_FLOPS * 1e3
+def _bound(flops: float, nbytes: float, tc_flops: float = 0.0) -> dict:
+    """Least time for ``flops`` f32 operations on the CUDA cores plus
+    ``tc_flops`` TF32 operations on the tensor cores, or for ``nbytes``."""
+    flop_ms = (flops / F32_PEAK_FLOPS + tc_flops / TF32_PEAK_FLOPS) * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(flop_ms, byte_ms),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
@@ -536,6 +565,12 @@ def phase_timings(device, server):
     wnr = win.clone().requires_grad_()
     lib_out = library(wr, wnr)
     bwd_flops = conv_flops + 7 * b * t * f + 2 * 2 * b * f * covered
+    bwd_bytes = (in_bytes + conv_bytes + out_bytes
+                 + 4 * (401 * 2 * f + f * 401))
+    # the f32-FMA bound that any CUDA-core design has, for comparison;
+    # the kernel's own: the correlation three times (3×TF32) on the
+    # tensor cores, dS/d_windows/dOUT on the CUDA cores
+    fma_bound = _bound(bwd_flops, bwd_bytes)["bound_ms"]
     results["bwd"] = {
         "ms": cuda_time_ms(lambda: fused_backward_cuda(x, conv, windows,
                                                        d_out)),
@@ -543,14 +578,27 @@ def phase_timings(device, server):
             lambda: fused_backward_reference(x, conv, windows, d_out)),
         "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
             lib_out, (wr, wnr), d_out.transpose(1, 2), retain_graph=True)),
-        **_bound(bwd_flops, in_bytes + conv_bytes + out_bytes
-                 + 4 * (401 * 2 * f + f * 401))}
+        **_bound(bwd_flops - conv_flops, bwd_bytes, 3 * conv_flops)}
     del conv, lib_out
     for name, r in results.items():
         log(f"[timing] {name} kernel B={b} T={t} F={f} f32: {r['ms']:.4f} ms "
             f"({r['bound_ms'] / r['ms']:.1%} of the {r['bound_by']} bound "
             f"{r['bound_ms']:.4f} ms); plain version {r['plain_ms']:.4f} ms; "
             f"cuDNN composition (library) {r['library_ms']:.4f} ms")
+    # each kernel against both bounds: its conv correlation in f32 on the
+    # CUDA cores, or three times (3×TF32) on the tensor cores
+    bounds = {"fwd": (results["fwd"]["bound_ms"], _bound(
+                  fwd_flops - conv_flops, in_bytes + out_bytes,
+                  3 * conv_flops)["bound_ms"]),
+              "fwd_save": (results["fwd_save"]["bound_ms"], _bound(
+                  fwd_flops - conv_flops, in_bytes + out_bytes + conv_bytes,
+                  3 * conv_flops)["bound_ms"]),
+              "bwd": (fma_bound, results["bwd"]["bound_ms"])}
+    for name, (fma_ms, tc_ms) in bounds.items():
+        ms = results[name]["ms"]
+        log(f"[timing] {name} bounds: f32 FMA {fma_ms:.4f} ms "
+            f"({fma_ms / ms:.1%} of the kernel's time), 3×TF32 tensor cores "
+            f"{tc_ms:.4f} ms ({tc_ms / ms:.1%})")
 
     for bucket in BUCKETS:
         req = (rng.randn(bucket, 16000) * 0.1).astype(np.float32)

@@ -19,10 +19,13 @@ plain PyTorch version (which a CPU tensor runs, and which the tests and
   backward's residual. Replaces ``_fwd_kernel`` with ``save_out=True``.
 - ``fused_backward_cuda`` (``csrc/fused_frontend_bwd.cu``) ↔
   ``fused_backward_reference``: (d_bank, d_windows) from x, OUT, the
-  windows and the output cotangent. Replaces ``_bwd_kernel``.
+  windows and the output cotangent. Replaces ``_bwd_kernel``. It runs
+  the d_bank correlation as an implicit GEMM on the tensor cores in
+  3×TF32 (``wgmma``), which keeps f32 accuracy.
 
-Each is bound by f32 operations, ≈ 2·B·T·2F·401 ≈ 2.6·10¹¹ at B=256,
-T=16000, F=40 (the sources' headers say what the designs do about it).
+Each does ≈ 2·B·T·2F·401 ≈ 2.6·10¹¹ flops at B=256, T=16000, F=40: the
+forwards on the CUDA cores in f32, the backward three times over on the
+tensor cores (the sources' headers say what the designs do about it).
 There is no fallback between kernel and plain version: a CUDA tensor the
 kernels cannot take raises.
 """
@@ -45,12 +48,11 @@ __all__ = ["fused_gabor_sqmod_lowpass", "fused_reference",
 _KMAX = 401
 _STRIDE = 160
 _PAD = (200, 200)
-_PAIRS = 8          # channel pairs per kernel block
-_MAX_GRID_Z = 65535  # the kernels put the batch on gridDim.z
-# Positions per backward block: each (batch row, tile, 8-pair group) block
-# writes one partial of its d_bank and d_windows sums, 98.5 MB in all at
-# B=256, T=16000, F=40 (2 tiles; 2560 blocks fill 132 SMs ~5 times over).
-_BWD_TILE = 8192
+_MAX_GRID_Z = 65535  # the forward kernels put the batch on gridDim.z
+# Channels per backward block: its d_bank tile is 401 taps × 80 columns
+# (re | im of 40 channels), the width of one m64n80k8 wgmma.
+_BWD_CHANS = 40
+_BWD_CHUNK = 32      # positions per backward pipeline stage
 
 
 def lowpass_frames_out(t: int, stride: int, k: int,
@@ -221,9 +223,9 @@ def fused_backward_cuda(x: torch.Tensor, conv: torch.Tensor,
 
     x (B, T), conv = OUT (B, 2F, T) from ``fused_forward_saving_cuda``,
     windows (F, 401), d_out (B, n_frames, F): contiguous float32 on one
-    CUDA device. The kernel writes per-block partial sums; one fixed-order
-    ``sum`` over their (row, tile) axis gives (d_bank (401, 2F),
-    d_windows (F, 401)).
+    CUDA device. The kernel (tensor cores, 3×TF32) writes one partial
+    sum per block; one fixed-order ``sum`` over the block axis gives
+    (d_bank (401, 2F), d_windows (F, 401)), the same on every launch.
     """
     from leaf_tpu_torch.ops._build import load_library
 
@@ -236,24 +238,30 @@ def fused_backward_cuda(x: torch.Tensor, conv: torch.Tensor,
     if tuple(d_out.shape) != (b, n_frames, f):
         raise ValueError(f"d_out must be ({b}, {n_frames}, {f}), got "
                          f"{tuple(d_out.shape)}")
-    groups = -(-f // _PAIRS)
-    n_tiles = -(-t_len // _BWD_TILE)
-    dbank = torch.empty((b * n_tiles, groups, _KMAX, 2 * _PAIRS), device=dev,
-                        dtype=torch.float32)
-    dwin = torch.empty((b * n_tiles, groups, _PAIRS, _KMAX), device=dev,
+    if 2 * f * t_len >= 2 ** 31 or b * -(-t_len // _BWD_CHUNK) >= 2 ** 31:
+        raise ValueError(f"({b}, {2 * f}, {t_len}) is past the backward "
+                         "kernel's 32-bit row and chunk indices")
+    groups = -(-f // _BWD_CHANS)
+    # one block per SM across the channel groups, each over a contiguous
+    # run of (batch row, 32-position chunk) pairs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_blocks = min(b * -(-t_len // _BWD_CHUNK), max(1, sms // groups))
+    dbank = torch.empty((groups, n_blocks, _KMAX, 2 * _BWD_CHANS),
+                        device=dev, dtype=torch.float32)
+    dwin = torch.empty((groups, n_blocks, _BWD_CHANS, _KMAX), device=dev,
                        dtype=torch.float32)
     lib = load_library()
     with torch.cuda.device(dev):
         _raise_on_error(lib.fused_bwd_f32(
             x.data_ptr(), conv.data_ptr(), windows.data_ptr(),
             d_out.data_ptr(), dbank.data_ptr(), dwin.data_ptr(), b, t_len, f,
-            n_frames, _BWD_TILE, torch.cuda.current_stream(dev).cuda_stream),
+            n_frames, n_blocks, torch.cuda.current_stream(dev).cuda_stream),
             "fused frontend backward")
     fused_backward_cuda.launches += 1
-    dbank = dbank.sum(0)                                   # (G, 401, 16)
-    cols = [dbank[..., h * _PAIRS:(h + 1) * _PAIRS].transpose(0, 1)
-            .reshape(_KMAX, groups * _PAIRS)[:, :f] for h in (0, 1)]
-    d_windows = dwin.sum(0).reshape(groups * _PAIRS, _KMAX)[:f]
+    dbank = dbank.sum(1)                                   # (G, 401, 80)
+    cols = [dbank[..., h * _BWD_CHANS:(h + 1) * _BWD_CHANS].transpose(0, 1)
+            .reshape(_KMAX, groups * _BWD_CHANS)[:, :f] for h in (0, 1)]
+    d_windows = dwin.sum(1).reshape(groups * _BWD_CHANS, _KMAX)[:f]
     return torch.cat(cols, dim=1), d_windows
 
 

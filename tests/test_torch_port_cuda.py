@@ -11,7 +11,8 @@ imports JAX, hence on the card:
 Tolerance, kernel vs plain version (TF32 off): |d| ≤ 1e-4·|ref| +
 1e-6·max|ref| for forward values — both sum the same float32 products in
 different orders; gradients to 1e-4 of their norm and of their largest
-entry (d_bank sums B·T products per entry).
+entry (d_bank sums B·T products per entry on the tensor cores in
+3×TF32, ~1.5e-5 of the norm at B=256, T=16000).
 """
 
 import numpy as np
@@ -93,8 +94,13 @@ def _assert_grad_close(got, ref):
     assert float(diff.max() / ref.abs().max()) <= 1e-4
 
 
+# the backward takes 40 channels per block and 32-position chunks, split
+# over one block per SM: (2, 16000, 64) needs two channel groups (2F =
+# 128 > 80), (3, 20, 40) is shorter than a chunk, (7, 1000, 40) leaves a
+# ragged last chunk per row and uneven runs of chunks per block
 EDGE = [(1, 1, 40), (3, 159, 3), (3, 161, 24), (1, 12345, 40),
-        (1, 48000, 24), (300, 161, 40), (300, 16000, 3)]
+        (1, 48000, 24), (300, 161, 40), (300, 16000, 3), (2, 16000, 64),
+        (3, 20, 40), (7, 1000, 40), (300, 16000, 40)]
 
 
 @pytest.mark.parametrize("b,t,f", EDGE)
@@ -123,6 +129,17 @@ def test_backward_kernel_matches_plain(cuda_device, b, t, f):
                                                        d_out)
     _assert_grad_close(d_bank, ref_bank)
     _assert_grad_close(d_win, ref_win)
+
+
+def test_backward_is_deterministic(cuda_device):
+    # blocks of ~240 chunks: several accumulator flushes per block
+    x, gabor, windows = _operands(64, 16000, 40, cuda_device)
+    out, conv = fused.fused_forward_saving_reference(x, gabor, windows)
+    d_out = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(3), device=cuda_device)
+    first = fused.fused_backward_cuda(x, conv, windows, d_out)
+    second = fused.fused_backward_cuda(x, conv, windows, d_out)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_backward_raises_on_card(cuda_device):

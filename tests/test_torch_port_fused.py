@@ -11,11 +11,15 @@ kernels have no CPU mode: tests/test_torch_port_cuda.py and chip_smoke.py
 hold them against these plain versions on the card.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as tF
+from torch.nn import grad as nn_grad
 
 from leaf_tpu.frontend import Leaf as JaxLeaf
 from leaf_tpu.ops import fused_frontend as jfused
@@ -27,13 +31,17 @@ from leaf_tpu_torch.ops import fused_frontend as fused
 F, K = 40, 401
 
 
-@pytest.fixture
-def inputs():
+def _make_inputs():
     rng = np.random.RandomState(0)
     x = rng.randn(4, 16000).astype("float32") * 0.1
     gabor = rng.randn(K, 2 * F).astype("float32") * 0.05
     windows = np.abs(rng.randn(F, K)).astype("float32") * 0.01
     return x, gabor, windows
+
+
+@pytest.fixture
+def inputs():
+    return _make_inputs()
 
 
 def _sub_bank(gabor, windows, f):
@@ -105,21 +113,31 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-@pytest.mark.parametrize("f", [40, 24])
-@pytest.mark.parametrize("t", [16000, 12345])
-def test_grads_match_jax_grad(inputs, t, f):
-    # jax.grad through the Pallas op (interpret mode) vs the port's
-    # backward (its plain version on the CPU): the loss of test_ops.py
-    x, gabor, windows = inputs
-    x = x[:2, :t]
-    gabor, windows = _sub_bank(gabor, windows, f)
+def _grad_inputs(t, f):
+    """test_ops.py's backward inputs: B=2, the first t samples, f channels."""
+    x, gabor, windows = _make_inputs()
+    return (x[:2, :t],) + _sub_bank(gabor, windows, f)
 
+
+@functools.lru_cache(maxsize=None)
+def _jax_grads(t, f):
+    """jax.grad of Σ sin(0.1·out) through the Pallas op (interpret mode),
+    for (x, bank, windows)."""
     def jloss(xx, g, w):
         o = jfused.fused_gabor_sqmod_lowpass(xx, g, w, 160, (200, 200), True)
         return jnp.sum(jnp.sin(o * 0.1))
 
-    ref = jax.grad(jloss, argnums=(0, 1, 2))(
-        jnp.asarray(x), jnp.asarray(gabor), jnp.asarray(windows))
+    return tuple(np.asarray(g) for g in jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in _grad_inputs(t, f))))
+
+
+@pytest.mark.parametrize("f", [40, 24])
+@pytest.mark.parametrize("t", [16000, 12345])
+def test_grads_match_jax_grad(t, f):
+    # jax.grad through the Pallas op (interpret mode) vs the port's
+    # backward (its plain version on the CPU): the loss of test_ops.py
+    x, gabor, windows = _grad_inputs(t, f)
+    ref = _jax_grads(t, f)
     tx, tg, tw = (torch.from_numpy(a).requires_grad_() for a in
                   (x, gabor, windows))
     loss = torch.sum(torch.sin(fused.fused_gabor_sqmod_lowpass(tx, tg, tw)
@@ -129,6 +147,50 @@ def test_grads_match_jax_grad(inputs, t, f):
     for a, b in zip(got[1:], ref[1:]):
         assert a.shape == b.shape
         assert _rel(a.numpy(), np.asarray(b)) < 1e-5
+
+
+def _rna_tf32(a):
+    """Round float32 to TF32 (10 stored mantissa bits), to nearest with
+    ties away from zero: cvt.rna.tf32.f32, through the int32 view."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.int32)
+    return ((bits + 0x1000) & np.int32(-0x2000)).view(np.float32)
+
+
+def _split_tf32(a):
+    hi = _rna_tf32(a)
+    return hi, _rna_tf32(a - hi)
+
+
+@pytest.mark.parametrize("t", [16000, 12345])
+def test_tf32x3_bank_gradient_matches_jax_grad(t):
+    """The backward kernel's arithmetic on the CPU: the d_bank correlation
+    from TF32 hi/lo splits of xpad and dOUT, hi·hi + hi·lo + lo·hi summed in
+    float32 (exact products: TF32 × TF32 fits in float32), against the JAX
+    op's bank gradient; one TF32 product (hi·hi) reads ≥ 10× worse."""
+    x, gabor, windows = (torch.from_numpy(a) for a in _grad_inputs(t, F))
+    out, conv = fused.fused_forward_saving_reference(x, gabor, windows)
+    dy = 0.1 * torch.cos(0.1 * out)          # d/d out of Σ sin(0.1·out)
+    s_pad = tF.pad(conv[:, :F] ** 2 + conv[:, F:] ** 2, (200, 200))
+    d_s = nn_grad.conv1d_input(s_pad.shape, windows[:, None, :],
+                               dy.transpose(1, 2), stride=160,
+                               groups=F)[..., 200:200 + t]
+    d_conv = 2.0 * conv * torch.cat([d_s, d_s], dim=1)   # dOUT (B, 2F, T)
+    xh, xl = _split_tf32(tF.pad(x, (200, 200)).numpy())
+    dh, dl = _split_tf32(d_conv.numpy())
+
+    def corr(xs, ds):  # Σ_{b,t} xs[b, t + j]·ds[b, col, t] in float32
+        return nn_grad.conv1d_weight(torch.from_numpy(xs)[:, None, :],
+                                     (2 * F, 1, K),
+                                     torch.from_numpy(ds))[:, 0].T.numpy()
+
+    one = corr(xh, dh)
+    three = one + corr(xh, dl) + corr(xl, dh)
+    ref = _jax_grads(t, F)[1]
+    assert three.shape == ref.shape == (K, 2 * F)
+    rel3, rel1 = _rel(three, ref), _rel(one, ref)
+    print(f"T={t}: d_bank vs JAX, 3×TF32 {rel3:.3e}, 1×TF32 {rel1:.3e}")
+    assert rel3 < 1e-5, rel3
+    assert rel1 >= 10 * rel3, (rel1, rel3)
 
 
 @pytest.mark.parametrize("t", [16000, 12345, 161, 1])
