@@ -7,14 +7,15 @@ no result. TF32 is off throughout (cuDNN and matmul).
 
 1. build        — compile the port's CUDA kernels from
                   ``leaf_tpu_torch/ops/csrc`` (one nvcc per source, together);
-                  count the tensor-core instructions (HGMMA/HMMA) in the
-                  backward library's SASS (``cuobjdump -sass``): none fails
+                  count the tensor-core instructions (HGMMA/HMMA) in each
+                  library's SASS (``cuobjdump -sass``): none fails
 2. parity       — primal forward kernel vs its plain PyTorch version,
-                  B=256, F=40, T ∈ {16000, 12345, 48000}
+                  B=256, F=40, T ∈ {16000, 12345, 48000}; two launches
+                  bit-equal; the worst ratio of error to tolerance
 3. parity-train — the residual-saving forward kernel (out and OUT) and the
                   backward kernel (d_bank, d_windows) vs their plain
                   versions and vs autograd through the plain forward, at
-                  the same shapes; two backward launches bit-equal
+                  the same shapes; two launches of each bit-equal
 4. serving      — the flagship LEAF + EfficientNet-b0 classifier (seeded
                   random weights) answers requests of 3, 8, 64 and 100 clips
                   through ``ServingModel`` with buckets (8, 64); one primal
@@ -61,8 +62,9 @@ REQUEST_SIZES = (3, 8, 64, 100)
 PARITY_B, PARITY_F = 256, 40
 PARITY_T = (16000, 12345, 48000)
 # kernel vs plain, elementwise: |k − p| ≤ RTOL·|p| + ATOL_REL·max|p|.
-# Both sum the same f32 products in different orders (f32 has ~6e-8
-# relative rounding; a 401-tap sum and its square stay well inside 1e-4).
+# The kernels sum the 401-tap products on the tensor cores in 3×TF32
+# (~22 bits per product, the accumulator flushed into f32 every 136
+# taps), the plain versions in f32 (~6e-8 relative rounding).
 KERNEL_RTOL, KERNEL_ATOL_REL = 1e-4, 1e-6
 # logits, fused vs unfused frontend: max|a − b| ≤ LOGIT_TOL·max|b| (the
 # kernel's last-bit differences pass through PCEN and 16 MBConv blocks)
@@ -142,10 +144,11 @@ def phase_build():
         if ("registers" in line or "spill" in line or "smem" in line
                 or "C75" in line or line.startswith("[")):
             log(f"[build] {line.strip()}")
-    counts = _sass_counts(lib.paths["bwd"])
-    log(f"[build] backward SASS tensor-core instructions: {counts}")
-    if not sum(counts.values()):
-        raise AssertionError("the backward library holds no HGMMA/HMMA")
+    for name, path in lib.paths.items():
+        counts = _sass_counts(path)
+        log(f"[build] {name} SASS tensor-core instructions: {counts}")
+        if not sum(counts.values()):
+            raise AssertionError(f"the {name} library holds no HGMMA/HMMA")
 
 
 def leaf_operands(device):
@@ -173,37 +176,36 @@ def phase_parity(device):
     for t in PARITY_T:
         x = x_all[:, :t].contiguous()
         got = fused_forward_cuda(x, bank, windows)
+        again = fused_forward_cuda(x, bank, windows)
         ref = fused_reference(x, bank, windows)
         torch.cuda.synchronize()
-        err = (got - ref).abs()
-        scale = float(ref.abs().max())
-        bound = KERNEL_RTOL * ref.abs() + KERNEL_ATOL_REL * scale
-        max_abs = float(err.max())
-        max_rel = float((err / ref.abs().clamp_min(1e-30)).max())
-        ok = (got.shape == ref.shape and bool(torch.isfinite(got).all())
-              and bool((err <= bound).all()))
-        log(f"[parity] T={t} B={PARITY_B} F={PARITY_F} shape="
-            f"{tuple(got.shape)} max_abs_err={max_abs:.3e} "
-            f"max_rel_err={max_rel:.3e} max|ref|={scale:.3e} tol: |d| <= "
-            f"{KERNEL_RTOL:g}*|ref| + {KERNEL_ATOL_REL:g}*max|ref| -> "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"kernel disagrees with plain at T={t}")
-        worst = max(worst, max_abs)
+        _check_bit_equal("[parity]", f"fwd T={t}", (got,), (again,))
+        worst = max(worst, _check_elementwise(
+            "[parity]", f"fwd T={t} B={PARITY_B} F={PARITY_F}", got, ref))
     return worst
 
 
-def _check_elementwise(tag: str, got, ref) -> float:
-    """|got − ref| ≤ KERNEL_RTOL·|ref| + KERNEL_ATOL_REL·max|ref|, or raise."""
+def _check_bit_equal(phase: str, tag: str, first, second) -> None:
+    """Two launches on the same operands give the same bits, or raise."""
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"{phase} {tag}: two launches bit-equal: {same}")
+    if not same:
+        raise AssertionError(f"{tag}: two launches differ")
+
+
+def _check_elementwise(phase: str, tag: str, got, ref) -> float:
+    """|got − ref| ≤ KERNEL_RTOL·|ref| + KERNEL_ATOL_REL·max|ref|, or raise;
+    logs the worst ratio of |got − ref| to that bound."""
     err = (got - ref).abs()
     scale = float(ref.abs().max())
+    ratio = float((err / (KERNEL_RTOL * ref.abs()
+                          + KERNEL_ATOL_REL * scale)).max())
     ok = (got.shape == ref.shape and bool(torch.isfinite(got).all())
-          and bool((err <= KERNEL_RTOL * ref.abs()
-                    + KERNEL_ATOL_REL * scale).all()))
-    log(f"[parity-train] {tag} shape={tuple(got.shape)} max_abs_err="
+          and ratio <= 1.0)
+    log(f"{phase} {tag} shape={tuple(got.shape)} max_abs_err="
         f"{float(err.max()):.3e} max|ref|={scale:.3e} tol: |d| <= "
-        f"{KERNEL_RTOL:g}*|ref| + {KERNEL_ATOL_REL:g}*max|ref| -> "
-        f"{'ok' if ok else 'FAIL'}")
+        f"{KERNEL_RTOL:g}*|ref| + {KERNEL_ATOL_REL:g}*max|ref|, worst "
+        f"|d|/tol {ratio:.3f} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{tag}: kernel disagrees with plain")
     return float(err.max())
@@ -240,12 +242,18 @@ def phase_parity_train(device):
     for t in PARITY_T:
         x = x_all[:, :t].contiguous()
         out, conv = fused_forward_saving_cuda(x, bank, windows)
+        again = fused_forward_saving_cuda(x, bank, windows)
         ref_out, ref_conv = fused_forward_saving_reference(x, bank, windows)
         torch.cuda.synchronize()
+        _check_bit_equal("[parity-train]", f"saving fwd T={t}", (out, conv),
+                         again)
+        del again
         worst_fwd = max(worst_fwd,
-                        _check_elementwise(f"saving fwd out T={t}", out,
+                        _check_elementwise("[parity-train]",
+                                           f"saving fwd out T={t}", out,
                                            ref_out),
-                        _check_elementwise(f"saving fwd OUT T={t}", conv,
+                        _check_elementwise("[parity-train]",
+                                           f"saving fwd OUT T={t}", conv,
                                            ref_conv))
         del ref_conv
         d_out = torch.from_numpy(
@@ -254,11 +262,8 @@ def phase_parity_train(device):
         again = fused_backward_cuda(x, conv, windows, d_out)
         p_bank, p_win = fused_backward_reference(x, conv, windows, d_out)
         torch.cuda.synchronize()
-        same = (torch.equal(d_bank, again[0])
-                and torch.equal(d_win, again[1]))
-        log(f"[parity-train] bwd T={t}: two launches bit-equal: {same}")
-        if not same:
-            raise AssertionError(f"backward is not deterministic at T={t}")
+        _check_bit_equal("[parity-train]", f"bwd T={t}", (d_bank, d_win),
+                         again)
         del again
         # autograd through the plain forward, x not requiring a gradient
         b_ = bank.clone().requires_grad_()
@@ -546,12 +551,17 @@ def phase_timings(device, server):
     conv_bytes = 4 * b * 2 * f * t
     results = {}
 
+    # each kernel's own bound: the conv correlation three times (3×TF32)
+    # on the tensor cores, the rest on the CUDA cores; the f32-FMA bound
+    # that any CUDA-core design has is logged beside it
+    fwd_bytes = in_bytes + out_bytes
     ms = cuda_time_ms(lambda: fused_forward_cuda(x, bank, windows))
     results["fwd"] = {"ms": ms,
                       "plain_ms": cuda_time_ms(
                           lambda: fused_reference(x, bank, windows)),
                       "library_ms": cuda_time_ms(library),
-                      **_bound(fwd_flops, in_bytes + out_bytes)}
+                      **_bound(fwd_flops - conv_flops, fwd_bytes,
+                               3 * conv_flops)}
     results["fwd_save"] = {
         "ms": cuda_time_ms(lambda: fused_forward_saving_cuda(x, bank,
                                                              windows)),
@@ -559,7 +569,8 @@ def phase_timings(device, server):
             lambda: fused_forward_saving_reference(x, bank, windows)),
         # the composition computes OUT (its conv1d output) on the way
         "library_ms": results["fwd"]["library_ms"],
-        **_bound(fwd_flops, in_bytes + out_bytes + conv_bytes)}
+        **_bound(fwd_flops - conv_flops, fwd_bytes + conv_bytes,
+                 3 * conv_flops)}
     _, conv = fused_forward_saving_cuda(x, bank, windows)
     wr = weight.clone().requires_grad_()
     wnr = win.clone().requires_grad_()
@@ -567,10 +578,6 @@ def phase_timings(device, server):
     bwd_flops = conv_flops + 7 * b * t * f + 2 * 2 * b * f * covered
     bwd_bytes = (in_bytes + conv_bytes + out_bytes
                  + 4 * (401 * 2 * f + f * 401))
-    # the f32-FMA bound that any CUDA-core design has, for comparison;
-    # the kernel's own: the correlation three times (3×TF32) on the
-    # tensor cores, dS/d_windows/dOUT on the CUDA cores
-    fma_bound = _bound(bwd_flops, bwd_bytes)["bound_ms"]
     results["bwd"] = {
         "ms": cuda_time_ms(lambda: fused_backward_cuda(x, conv, windows,
                                                        d_out)),
@@ -587,15 +594,12 @@ def phase_timings(device, server):
             f"cuDNN composition (library) {r['library_ms']:.4f} ms")
     # each kernel against both bounds: its conv correlation in f32 on the
     # CUDA cores, or three times (3×TF32) on the tensor cores
-    bounds = {"fwd": (results["fwd"]["bound_ms"], _bound(
-                  fwd_flops - conv_flops, in_bytes + out_bytes,
-                  3 * conv_flops)["bound_ms"]),
-              "fwd_save": (results["fwd_save"]["bound_ms"], _bound(
-                  fwd_flops - conv_flops, in_bytes + out_bytes + conv_bytes,
-                  3 * conv_flops)["bound_ms"]),
-              "bwd": (fma_bound, results["bwd"]["bound_ms"])}
-    for name, (fma_ms, tc_ms) in bounds.items():
-        ms = results[name]["ms"]
+    fma_bounds = {"fwd": _bound(fwd_flops, fwd_bytes),
+                  "fwd_save": _bound(fwd_flops, fwd_bytes + conv_bytes),
+                  "bwd": _bound(bwd_flops, bwd_bytes)}
+    for name, r in results.items():
+        ms, tc_ms = r["ms"], r["bound_ms"]
+        fma_ms = fma_bounds[name]["bound_ms"]
         log(f"[timing] {name} bounds: f32 FMA {fma_ms:.4f} ms "
             f"({fma_ms / ms:.1%} of the kernel's time), 3×TF32 tensor cores "
             f"{tc_ms:.4f} ms ({tc_ms / ms:.1%})")

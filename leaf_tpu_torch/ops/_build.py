@@ -4,9 +4,10 @@ The kernels have a plain C interface, so they build with ``nvcc`` alone in
 seconds (no PyTorch headers) and bind with ``ctypes``. The build happens
 at first use, from the sources in ``csrc/`` (one ``nvcc`` per source, all
 started together), into ``build/`` beside this file (listed in
-``.gitignore``). Each library's name carries a hash of its source and the
-flags, so an edited source builds anew and a finished build is reused by
-later processes.
+``.gitignore``). Each library's name carries a hash of its source, of
+every ``csrc/`` header that source includes, and of the flags, so an edited
+source or header builds anew and a finished build is reused by later
+processes.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -66,9 +68,27 @@ def _nvcc() -> str:
                        "with the CUDA toolkit (PATH or CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _inputs(path: Path) -> list:
+    """``path`` and every file it includes with quotes, transitively
+    (resolved beside the including file), each once, in a fixed order."""
+    files, todo = [], [path]
+    while todo:
+        f = todo.pop(0)
+        if f not in files:
+            files.append(f)
+            todo += [(f.parent / inc.decode()).resolve()
+                     for inc in _INCLUDE.findall(f.read_bytes())]
+    return files
+
+
 def _target(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for f in _inputs(SOURCES[name]):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"libleaf_{name}_{digest}.so"
 
 

@@ -23,9 +23,11 @@ plain PyTorch version (which a CPU tensor runs, and which the tests and
   the d_bank correlation as an implicit GEMM on the tensor cores in
   3×TF32 (``wgmma``), which keeps f32 accuracy.
 
-Each does ≈ 2·B·T·2F·401 ≈ 2.6·10¹¹ flops at B=256, T=16000, F=40: the
-forwards on the CUDA cores in f32, the backward three times over on the
-tensor cores (the sources' headers say what the designs do about it).
+Each does ≈ 2·B·T·2F·401 ≈ 2.6·10¹¹ flops at B=256, T=16000, F=40, three
+times over on the tensor cores (3×TF32 ``wgmma``, which keeps f32
+accuracy); the forwards run the conv as an implicit GEMM with the bank
+held in shared memory (the sources' headers say what the designs do
+about it; ``csrc/hopper_tf32.cuh`` holds the PTX helpers both share).
 There is no fallback between kernel and plain version: a CUDA tensor the
 kernels cannot take raises.
 """

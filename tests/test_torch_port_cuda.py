@@ -9,10 +9,11 @@ imports JAX, hence on the card:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
 Tolerance, kernel vs plain version (TF32 off): |d| ≤ 1e-4·|ref| +
-1e-6·max|ref| for forward values — both sum the same float32 products in
-different orders; gradients to 1e-4 of their norm and of their largest
-entry (d_bank sums B·T products per entry on the tensor cores in
-3×TF32, ~1.5e-5 of the norm at B=256, T=16000).
+1e-6·max|ref| for forward values — the kernels sum the 401-tap products
+on the tensor cores in 3×TF32 (~22 bits per product), the plain versions
+in float32; gradients to 1e-4 of their norm and of their largest entry
+(d_bank sums B·T products per entry on the tensor cores in 3×TF32,
+~1.5e-5 of the norm at B=256, T=16000).
 """
 
 import numpy as np
@@ -54,10 +55,15 @@ def _assert_close(got, ref):
         (got - ref).abs().max())
 
 
+# the forwards take 20 channels per block (F=20: one full group, F=21:
+# one channel over) and walk their S span in 256-position chunks of four
+# 64-position tiles: at T=1000 the span ends inside a chunk's third tile;
+# T % 4 != 0 takes the 4-byte waveform copies
 @pytest.mark.parametrize("b,t,f", [
     (1, 1, 40), (3, 159, 40), (2, 160, 40), (2, 161, 40), (2, 3041, 40),
     (5, 12345, 24), (4, 16000, 3), (2, 16000, 64), (1, 48000, 40),
-    (300, 16000, 8),
+    (300, 16000, 8), (2, 16000, 20), (3, 16000, 21), (2, 1000, 20),
+    (3, 4037, 21),
 ])
 def test_kernel_matches_plain(cuda_device, b, t, f):
     x, gabor, windows = _operands(b, t, f, cuda_device)
@@ -66,6 +72,30 @@ def test_kernel_matches_plain(cuda_device, b, t, f):
     torch.cuda.synchronize()
     assert fused.fused_forward_cuda.launches == before + 1
     _assert_close(got, fused.fused_reference(x, gabor, windows))
+
+
+def test_misaligned_waveform(cuda_device):
+    # contiguous, T % 4 == 0, but x starts 4 bytes past a 16-byte boundary:
+    # the kernels take the 4-byte waveform copies
+    x, gabor, windows = _operands(3, 16000, 40, cuda_device)
+    flat = torch.empty(x.numel() + 1, device=cuda_device)
+    xs = flat[1:].view_as(x)
+    xs.copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16
+    out, conv = fused.fused_forward_saving_cuda(xs, gabor, windows)
+    ref_out, ref_conv = fused.fused_forward_saving_reference(x, gabor, windows)
+    _assert_close(fused.fused_forward_cuda(xs, gabor, windows), ref_out)
+    _assert_close(out, ref_out)
+    _assert_close(conv, ref_conv)
+
+
+def test_forwards_are_deterministic(cuda_device):
+    x, gabor, windows = _operands(64, 16000, 40, cuda_device)
+    assert torch.equal(fused.fused_forward_cuda(x, gabor, windows),
+                       fused.fused_forward_cuda(x, gabor, windows))
+    first = fused.fused_forward_saving_cuda(x, gabor, windows)
+    second = fused.fused_forward_saving_cuda(x, gabor, windows)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_non_contiguous_input(cuda_device):
@@ -97,10 +127,13 @@ def _assert_grad_close(got, ref):
 # the backward takes 40 channels per block and 32-position chunks, split
 # over one block per SM: (2, 16000, 64) needs two channel groups (2F =
 # 128 > 80), (3, 20, 40) is shorter than a chunk, (7, 1000, 40) leaves a
-# ragged last chunk per row and uneven runs of chunks per block
+# ragged last chunk per row and uneven runs of chunks per block; the
+# saving forward's 20-channel groups: (2, 3041, 20) one full group,
+# (2, 1000, 21) one channel over, with its S span ending mid-chunk
 EDGE = [(1, 1, 40), (3, 159, 3), (3, 161, 24), (1, 12345, 40),
         (1, 48000, 24), (300, 161, 40), (300, 16000, 3), (2, 16000, 64),
-        (3, 20, 40), (7, 1000, 40), (300, 16000, 40)]
+        (3, 20, 40), (7, 1000, 40), (300, 16000, 40), (2, 3041, 20),
+        (2, 1000, 21)]
 
 
 @pytest.mark.parametrize("b,t,f", EDGE)

@@ -193,6 +193,39 @@ def test_tf32x3_bank_gradient_matches_jax_grad(t):
     assert rel1 >= 10 * rel3, (rel1, rel3)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_forward(t):
+    """The JAX op's forward (Pallas, interpret mode) at B=2, F=40."""
+    return np.asarray(jfused.fused_gabor_sqmod_lowpass(
+        *(jnp.asarray(a) for a in _grad_inputs(t, F)), 160, (200, 200), True))
+
+
+@pytest.mark.parametrize("t", [16000, 12345])
+def test_tf32x3_forward_matches_jax(t):
+    """The forward kernels' arithmetic on the CPU: OUT from TF32 hi/lo
+    splits of xpad and the bank, hi·hi + hi·lo + lo·hi summed in float32,
+    then |·|² and the lowpass, against the JAX op at
+    test_plain_matches_jax_op's tolerance; one TF32 product (hi·hi)
+    reads ≥ 10× worse in rel-norm."""
+    x, gabor, windows = _grad_inputs(t, F)
+    xh, xl = (torch.from_numpy(a)[:, None, :]
+              for a in _split_tf32(np.pad(x, ((0, 0), (200, 200)))))
+    gh, gl = (torch.from_numpy(a.T.copy())[:, None, :]
+              for a in _split_tf32(gabor))
+    one = tF.conv1d(xh, gh)                                 # OUT (B, 2F, T)
+    three = one + tF.conv1d(xh, gl) + tF.conv1d(xl, gh)
+    w = torch.from_numpy(windows)
+    out1, out3 = (fused._sqmod_lowpass(o, w, 160, (200, 200)).numpy()
+                  for o in (one, three))
+    ref = _jax_forward(t)
+    assert out3.shape == ref.shape == (2, fused.lowpass_frames_out(
+        t, 160, K, (200, 200)), F)
+    rel3, rel1 = _rel(out3, ref), _rel(out1, ref)
+    print(f"T={t}: out vs JAX, 3×TF32 {rel3:.3e}, 1×TF32 {rel1:.3e}")
+    np.testing.assert_allclose(out3, ref, atol=1e-6, rtol=1e-5)
+    assert rel1 >= 10 * rel3, (rel1, rel3)
+
+
 @pytest.mark.parametrize("t", [16000, 12345, 161, 1])
 def test_backward_reference_matches_autograd(inputs, t):
     # the plain backward from its formulas vs autograd through the plain
