@@ -33,7 +33,16 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   at B=256, T=16000 (CUDA events); serving latency per
                   bucket; the train step fused vs 'off' and a torch.profiler
                   split of one step
-7. report       — card name and power limit, the ``kernels`` JSON line, and
+7. cli          — the flagship recipe through ``python -m
+                  leaf_tpu_torch.train`` / ``.evaluate`` on a synthetic tone
+                  task (35 classes; 1024 train, 256 val clips of 1 s, 48
+                  test clips of 1–3 s): 2 epochs at B=256 (saving forward =
+                  backward launches = steps), SIGTERM mid-epoch and a resume
+                  that redoes the epoch, evaluate with BN recalibration
+                  (JAX-format results.txt; a rerun skips); the train loop's
+                  clips/s, each CLI's wall time, and the train DataLoader's
+                  clips/s alone (in_memory off and on)
+8. report       — card name and power limit, the ``kernels`` JSON line, and
                   the last line ``{"ok": true, "device": {...}}``
 
     python3 chip_smoke.py
@@ -43,9 +52,11 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -337,10 +348,8 @@ def phase_serving(device):
 
 
 def _counts() -> dict:
-    from leaf_tpu_torch.ops import fused_frontend as ff
-    return {"fwd": ff.fused_forward_cuda.launches,
-            "fwd_save": ff.fused_forward_saving_cuda.launches,
-            "bwd": ff.fused_backward_cuda.launches}
+    from leaf_tpu_torch.train import kernel_launches
+    return kernel_launches()
 
 
 def _zero_counts() -> None:
@@ -670,6 +679,248 @@ def phase_train_timing(device, state):
     return medians
 
 
+# ------------------------------------------------------------------ [cli]
+# The synthetic tone task (after scripts/synthetic_convergence.py): class c
+# is a tone in the band 200 + 150·c ± 40 Hz with a random gain and phase,
+# plus noise. The host pipeline must feed B=256 steps of ~35.1 ms of
+# device time (PERF.md §5): 256 / 0.0351 s ≈ 7300 clips/s.
+CLI_CLASSES, CLI_TRAIN, CLI_VAL, CLI_TEST = 35, 1024, 256, 48
+CLI_TIMEOUT = 400
+STEP_DEVICE_CLIPS_PER_S = 7300
+
+
+def _tone(rng, c, t):
+    f0 = 200.0 + 150.0 * c + rng.uniform(-40.0, 40.0)
+    amp = rng.uniform(0.1, 0.5)
+    phase = rng.uniform(0, 2 * np.pi)
+    return amp * np.sin(2 * np.pi * f0 * t + phase)
+
+
+def _write_tone_task(root: str) -> None:
+    """train/val/test manifests of tone WAVs (1 s; the test clips 1–3 s),
+    the label map and the flagship cfg pointing at them."""
+    import csv
+
+    from leaf_tpu_torch.data import write_wav
+    sr = 16000
+    rng = np.random.RandomState(0)
+    for name, n, seconds in (("train", CLI_TRAIN, lambda i: 1.0),
+                             ("val", CLI_VAL, lambda i: 1.0),
+                             ("test", CLI_TEST, lambda i: 1.0 + (i % 5) / 2)):
+        os.makedirs(os.path.join(root, name))
+        rows = []
+        for i in range(n):
+            c = i % CLI_CLASSES
+            t = np.arange(int(seconds(i) * sr)) / sr
+            x = _tone(rng, c, t) + 0.05 * rng.randn(t.size)
+            path = os.path.join(root, name, f"clip{i:05d}.wav")
+            write_wav(path, x.astype(np.float32), sr)
+            rows.append((path, f"class{c}"))
+        with open(os.path.join(root, f"{name}.csv"), "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(("files", "labels"))
+            w.writerows(rows)
+    with open(os.path.join(root, "lbl_map.json"), "w") as f:
+        json.dump({f"class{c}": c for c in range(CLI_CLASSES)}, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "cfgs", "speechcommands",
+                           "efficientnet-b0-leaf-default.cfg")) as f:
+        text = f.read()
+    text = text.replace('meta_root: "/data/speech_commands/meta"',
+                        f'meta_root: "{root}"')
+    with open(os.path.join(root, "flagship.cfg"), "w") as f:
+        f.write(text)
+
+
+def _cli(module: str, args, tag: str, sigterm_after_steps: int = 0):
+    """Run ``python -m leaf_tpu_torch.<module>``; returns its stdout. With
+    ``sigterm_after_steps`` it is sent SIGTERM after that many step lines.
+    Fails on a non-zero exit; never leaves the process running."""
+    import signal
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-u", "-m", f"leaf_tpu_torch.{module}", *args]
+    env = {**os.environ,
+           "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            cwd=here)
+    try:
+        lines, steps = [], 0
+        if sigterm_after_steps:
+            for line in proc.stdout:
+                lines.append(line)
+                if " step " in line and " rate " in line:
+                    steps += 1
+                    if steps == sigterm_after_steps:
+                        proc.send_signal(signal.SIGTERM)
+                        break
+        rest, _ = proc.communicate(timeout=CLI_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(lines) + (rest or "")
+    wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        log(f"[cli]   {line}")
+    log(f"[cli] {tag}: exit {proc.returncode}, wall {wall:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag} exited {proc.returncode}")
+    return out, wall
+
+
+_EPOCH_LINE = re.compile(r"^epoch (\d+): tr_loss (\S+) .* val_acc (\S+) "
+                         r"\((\S+)s, (\S+) ex/s\) kernels (\{.*\})$", re.M)
+
+
+def _epoch_lines(out: str):
+    return [(int(e), float(loss), float(acc), float(rate), json.loads(k))
+            for e, loss, acc, _, rate, k in _EPOCH_LINE.findall(out)]
+
+
+def _time_loader(cfg: dict, in_memory: bool, workers: int,
+                 epochs: int = 3) -> list:
+    """clips/s of the train DataLoader alone (no model), per epoch."""
+    from leaf_tpu_torch.data import (RawWaveformDataset,
+                                     leaf_host_crop_transforms,
+                                     setup_dataloaders)
+    ds = RawWaveformDataset(cfg["data"]["train"], cfg["data"]["labels"],
+                            cfg["audio_config"], mode="multiclass",
+                            transform=leaf_host_crop_transforms(True, 16000),
+                            in_memory=in_memory, wire_dtype="int16")
+    loader, _ = setup_dataloaders(ds, None, TRAIN_B, target_len=16000,
+                                  num_workers=workers, need_val=False)
+    rates = []
+    for epoch in range(epochs):
+        loader.set_epoch(epoch)
+        t0 = time.perf_counter()
+        n = sum(x.shape[0] for x, _ in loader)
+        rates.append(n / (time.perf_counter() - t0))
+    return rates
+
+
+def _time_decode(cfg: dict, n: int = 256) -> float:
+    """µs per clip of ``load_audio`` alone, one thread, over n train files
+    (read once before, so the OS cache holds them)."""
+    from leaf_tpu_torch.data.audio import load_audio
+    from leaf_tpu_torch.data.dataset import read_manifest
+    files = read_manifest(cfg["data"]["train"])["files"][:n]
+    for f in files:
+        load_audio(f, 16000, 1.0, dtype="int16")
+    t0 = time.perf_counter()
+    for f in files:
+        load_audio(f, 16000, 1.0, dtype="int16")
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def phase_cli(tmp: str) -> dict:
+    """The flagship recipe through the CLIs on the synthetic tone task:
+    train 2 epochs, preempt and resume, evaluate (and skip), and the host
+    loader's throughput on its own."""
+    from leaf_tpu_torch.training.config import get_config
+    t0 = time.perf_counter()
+    _write_tone_task(tmp)
+    log(f"[cli] wrote {CLI_TRAIN} + {CLI_VAL} + {CLI_TEST} tone WAVs "
+        f"({CLI_CLASSES} classes) in {time.perf_counter() - t0:.1f} s")
+    cfg_file = os.path.join(tmp, "flagship.cfg")
+    cfg = get_config(cfg_file)
+    if (cfg["opt"]["batch_size"] != TRAIN_B or cfg["opt"]["lr"] != "1e-3"
+            or cfg["data"]["train"] != os.path.join(tmp, "train.csv")):
+        raise AssertionError(f"flagship cfg read wrongly: {cfg}")
+    exp = os.path.join(tmp, "exp")
+    steps = CLI_TRAIN // TRAIN_B
+    val_batches = -(-CLI_VAL // TRAIN_B)
+    base = ["--cfg_file", cfg_file, "--expdir", exp, "--num_workers", "4"]
+    walls = {}
+
+    out, walls["train 2 epochs"] = _cli("train", base + ["--epochs", "2"],
+                                        "train --epochs 2")
+    epochs = _epoch_lines(out)
+    missing = [p for p in ("hparams.json", "epoch_000/meta.json",
+                           "epoch_000/state.pt", "epoch_001/meta.json",
+                           "epoch_001/state.pt")
+               if not os.path.exists(os.path.join(exp, p))]
+    counts = epochs[-1][4] if len(epochs) == 2 else {}
+    if (missing or len(epochs) != 2
+            or not all(np.isfinite(e[1]) for e in epochs)
+            or counts.get("fwd_save") != 2 * steps
+            or counts.get("bwd") != 2 * steps
+            or counts.get("fwd", 0) < 2 * val_batches):
+        raise AssertionError(f"train CLI: missing {missing}, epochs "
+                             f"{epochs}")
+    log(f"[cli] train: {len(epochs)} epochs of {steps} steps at "
+        f"B={TRAIN_B}; losses {[e[1] for e in epochs]}; kernel launches "
+        f"{counts} (saving forward = backward = {2 * steps} steps; primal "
+        f"forward >= {2 * val_batches} val batches)")
+    log("[cli] train loop: " + ", ".join(
+        f"epoch {e[0]} {e[3]:.1f} clips/s" for e in epochs)
+        + " (RateTracker.global_rate over the epoch's steps, read after "
+        "the last step's loss)")
+
+    # preempt mid-epoch, then resume. The host enqueues steps ahead of the
+    # card, so the signal lands in epoch 2 or later: read which.
+    out, walls["train preempted"] = _cli(
+        "train", base + ["--epochs", "6", "--log_steps", "1",
+                         "--continue_from_ckpt", "latest"],
+        "train --epochs 6 (SIGTERM after 2 step lines)",
+        sigterm_after_steps=2)
+    hit = re.search(r"SIGTERM: checkpointed mid-epoch (\d+) step (\d+)", out)
+    if "resumed from" not in out or not hit:
+        raise AssertionError("no preempt save")
+    stop = int(hit.group(1))
+    with open(os.path.join(exp, f"epoch_{stop:03d}_preempt",
+                           "meta.json")) as f:
+        meta = json.load(f)
+    if stop < 2 or meta["epoch"] != stop - 1:
+        raise AssertionError(f"preempted in epoch {stop}, meta {meta}")
+    out, walls["train resumed"] = _cli(
+        "train", base + ["--epochs", str(stop + 1),
+                         "--continue_from_ckpt", "latest"],
+        f"train --epochs {stop + 1} --continue_from_ckpt latest")
+    resumed = _epoch_lines(out)
+    if (f"_preempt at epoch {stop}" not in out
+            or [e[0] for e in resumed] != [stop]
+            or not os.path.exists(os.path.join(exp, f"epoch_{stop:03d}",
+                                               "state.pt"))):
+        raise AssertionError(f"resume did not redo the interrupted epoch "
+                             f"{stop}")
+    log(f"[cli] preempt: SIGTERM landed in epoch {stop} at step "
+        f"{hit.group(2)}; epoch_{stop:03d}_preempt has meta epoch "
+        f"{meta['epoch']}; the resume redid epoch {stop} and saved it")
+
+    ev = ["--exp_dir", exp, "--meta_dir", tmp, "--test_csv_name",
+          "test.csv", "--bn_recalibrate", "2"]
+    out, walls["evaluate"] = _cli("evaluate", ev, "evaluate --bn_recalibrate 2")
+    res_path = os.path.join(exp, "results.txt")
+    with open(res_path) as f:
+        body = f.read()
+    rows = body.splitlines()
+    if (len(rows) != 2 or rows[0] != "model,acc,ckpt"
+            or not rows[1].startswith("efficientnet,")
+            or not 0.0 <= float(rows[1].split(",")[1]) <= 1.0
+            or "recalibrating BN stats on 2 batches" not in out):
+        raise AssertionError(f"results.txt malformed: {body!r}")
+    log(f"[cli] results.txt: {rows[1]}")
+    out, walls["evaluate (skips)"] = _cli("evaluate", ev, "evaluate again")
+    with open(res_path) as f:
+        if "skipping" not in out or f.read() != body:
+            raise AssertionError("the second evaluate did not skip")
+
+    loader = {(mem, w): _time_loader(cfg, mem, w)
+              for mem, w in ((False, 1), (False, 4), (True, 4))}
+    for (mem, w), rates in loader.items():
+        log(f"[cli] train DataLoader alone (num_workers {w}, in_memory "
+            f"{mem}, int16 wire, B={TRAIN_B}): " + ", ".join(
+                f"epoch {i} {r:.0f} clips/s" for i, r in enumerate(rates))
+            + f"; the step needs ~{STEP_DEVICE_CLIPS_PER_S} clips/s")
+    log(f"[cli] load_audio alone, one thread, files in {tmp}: "
+        f"{_time_decode(cfg):.1f} us per clip")
+    log("[cli] wall times: " + ", ".join(f"{k} {v:.1f} s"
+                                         for k, v in walls.items()))
+    return {"loop": [e[3] for e in epochs], "loader": loader, "walls": walls}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -693,6 +944,10 @@ def main() -> int:
     phase_train_parity(device, state)
     timing = phase_timings(device, server)
     phase_train_timing(device, state)
+    del server, state
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="leaf_cli_") as tmp:
+        phase_cli(tmp)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -12,6 +12,10 @@ from torch import nn
 __all__ = ["BatchNorm2d", "Conv2dSame", "drop_connect", "dropout",
            "global_avg_pool", "lecun_normal_init_"]
 
+# the standard deviation of a unit normal truncated at ±2 (jax.nn's
+# variance_scaling divides by it so that the truncated draw keeps its scale)
+_TRUNC_NORMAL_STD = 0.87962566103423978
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with Flax's training semantics, under torch's names.
@@ -122,16 +126,19 @@ def lecun_normal_init_(module: nn.Module,
                        generator: Optional[torch.Generator] = None) -> None:
     """Seeded init of every conv and linear layer below ``module``.
 
-    Weights ~ N(0, 1/fan_in) (the Flax default's LeCun scale, untruncated),
-    biases zero; batch norms keep torch's (scale 1, bias 0). Numbers are
-    drawn on the CPU from ``generator`` and copied to the module's device,
-    so a seed gives the same weights on every device.
+    Weights as Flax's default ``lecun_normal()``: a normal truncated at
+    ±2σ with σ = √(1/fan_in)/0.87962566, which keeps the variance at
+    1/fan_in; biases zero; batch norms keep torch's (scale 1, bias 0).
+    Numbers are drawn on the CPU from ``generator`` and copied to the
+    module's device, so a seed gives the same weights on every device.
     """
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
-            w = torch.randn(m.weight.shape, generator=generator,
-                            dtype=m.weight.dtype)
-            m.weight.copy_(w / math.sqrt(fan_in))
+            sd = math.sqrt(1.0 / fan_in) / _TRUNC_NORMAL_STD
+            w = torch.empty(m.weight.shape, dtype=m.weight.dtype)
+            nn.init.trunc_normal_(w, 0.0, sd, -2.0 * sd, 2.0 * sd,
+                                  generator=generator)
+            m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()

@@ -191,3 +191,23 @@ class TestFactory:
         logits = m(x, torch.Generator().manual_seed(0))
         assert m.training and logits.shape == (2, 35)
         assert bool(torch.isfinite(logits).all())
+
+
+def test_backbone_init_is_flax_lecun_normal():
+    # Flax's lecun_normal(): a normal truncated at ±2σ with
+    # σ = √(1/fan_in)/0.87962566, so the std stays √(1/fan_in) and no
+    # |w|·√fan_in exceeds 2/0.87962566 ≈ 2.274
+    model = get_classifier(CFG["model"], device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    layers = [m for m in model.modules()
+              if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    assert len(layers) == 82
+    bound = 2.0 / 0.87962566 + 1e-6
+    for m in layers:
+        w = m.weight.detach()
+        assert float(w.abs().max()) * w[0].numel() ** 0.5 <= bound
+    largest = sorted(layers, key=lambda m: m.weight.numel())[-5:]
+    for m in largest:   # ≥ 400k draws each
+        w = m.weight.detach()
+        std = float(w.std()) * w[0].numel() ** 0.5
+        assert abs(std - 1.0) < 0.02, (m, std)

@@ -16,10 +16,21 @@ in float32; gradients to 1e-4 of their norm and of their largest entry
 ~1.5e-5 of the norm at B=256, T=16000).
 """
 
+import csv
+import json
+import os
+import re
+import subprocess
+import sys
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
 
+from leaf_tpu_torch.data import loader
+from leaf_tpu_torch.data.audio import write_wav
 from leaf_tpu_torch.frontend import Leaf
 from leaf_tpu_torch.ops import fused_frontend as fused
 from leaf_tpu_torch.serving import ServingModel
@@ -256,3 +267,136 @@ def test_serving_defaults_to_the_card(cuda_device):
     assert server.device.type == "cuda"
     out = server(np.zeros((3, 16000), np.float32))
     assert out.shape == (3, 35) and np.isfinite(out).all()
+
+
+# --------------------------------------------------- host pipeline and CLIs
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SR = 16000
+TEST_SECONDS = (0.4, 1.3, 2.5, 0.7, 1.0, 2.2)   # 1, 2 and 3 windows
+CFG_TEXT = """frontend:
+    name: leaf
+    default_args: False
+    n_filters: 8
+model:
+    arch: efficientnet
+    model_depth: b0
+    num_classes: 3
+    type: multiclass
+opt:
+    optimizer: Adam
+    lr: 1e-3
+    weight_decay: 0
+    scheduler: warmupcosine
+    warmup_epochs: 1
+    batch_size: 4
+audio_config:
+    feature: raw
+    normalize: False
+    sample_rate: {sr}
+    min_duration: 0.25
+    random_clip_size: 0.25
+    val_clip_size: 0.25
+data:
+    meta_root: "{root}"
+    is_lmdb: False
+    train_manifest: train.csv
+    val_manifest: val.csv
+    test_manifest: None
+    label_map: lbl_map.json
+"""
+
+
+def _manifest(path, files, labels):
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(("files", "labels"))
+        w.writerows(zip(files, labels))
+
+
+def make_tiny_exp(root):
+    """A tiny on-disk experiment (after tests/test_preemption.py's): 24
+    tone WAVs of 0.4 s in 3 classes, train/val/test manifests (the test
+    clips of 1, 2 and 3 one-second windows), a label map, and an
+    efficientnet-b0 cfg behind a Leaf of 8 filters with 0.25 s clips and
+    B=4. Also used by tests/test_torch_port_cli.py."""
+    rng = np.random.RandomState(0)
+    files, labels = [], []
+    for i in range(24):
+        n = int(0.4 * SR)
+        x = 0.3 * np.sin(2 * np.pi * (300 + 100 * (i % 3))
+                         * np.arange(n) / SR)
+        x += 0.01 * rng.randn(n)
+        p = str(root / f"c{i}.wav")
+        write_wav(p, x.astype(np.float32), SR)
+        files.append(p)
+        labels.append(f"class{i % 3}")
+    _manifest(root / "train.csv", files, labels)
+    _manifest(root / "val.csv", files[:6], labels[:6])
+    tfiles = []
+    for i, sec in enumerate(TEST_SECONDS):
+        n = int(sec * SR)
+        x = 0.3 * np.sin(2 * np.pi * (300 + 100 * (i % 3))
+                         * np.arange(n) / SR) + 0.01 * rng.randn(n)
+        p = str(root / f"t{i}.wav")
+        write_wav(p, x.astype(np.float32), SR)
+        tfiles.append(p)
+    _manifest(root / "test.csv", tfiles,
+              [f"class{i % 3}" for i in range(len(tfiles))])
+    (root / "lbl_map.json").write_text(
+        json.dumps({f"class{i}": i for i in range(3)}))
+    (root / "cfg.cfg").write_text(CFG_TEXT.format(sr=SR, root=root))
+    return root
+
+
+
+
+def _host_batches(n, seed):
+    rng = np.random.RandomState(seed)
+    return [((rng.randn(64, 16000) * 3000).astype(np.int16),
+             rng.randint(0, 35, 64).astype(np.int32)) for _ in range(n)]
+
+
+@pytest.mark.parametrize("size", [1, 2])
+def test_prefetch_pinned_copies_arrive_intact(cuda_device, size):
+    # a long kernel ahead of the copies on the stream: every copy executes
+    # after the feeder has pinned (and dropped) later batches, so a pinned
+    # block reused before its copy ran would show here
+    batches = _host_batches(12, size)
+    want = [(x.copy(), y.copy()) for x, y in batches]
+    torch.cuda._sleep(200_000_000)
+    got = list(loader.prefetch_to_device(
+        iter(batches), loader.pinned_placer(cuda_device), size=size))
+    assert len(got) == len(want)
+    for (x, y), (wx, wy) in zip(got, want):
+        assert x.is_cuda and x.dtype == torch.int16 and y.dtype == torch.int64
+        assert torch.equal(x.cpu(), torch.from_numpy(wx))
+        assert torch.equal(y.cpu(), torch.from_numpy(wy.astype(np.int64)))
+
+
+def test_prefetch_abandoned_early_frees_the_feeder(cuda_device):
+    before = threading.active_count()
+    feed = loader.prefetch_to_device(iter(_host_batches(30, 3)),
+                                     loader.pinned_placer(cuda_device), size=2)
+    next(feed)
+    feed.close()
+    deadline = time.time() + 5
+    while threading.active_count() > before and time.time() < deadline:
+        time.sleep(0.05)
+    assert threading.active_count() <= before
+
+
+def test_train_cli_launches_the_kernels(cuda_device, tmp_path):
+    root = make_tiny_exp(tmp_path)
+    env = {**os.environ, "PYTHONPATH": REPO}
+    res = subprocess.run(
+        [sys.executable, "-u", "-m", "leaf_tpu_torch.train", "--cfg_file",
+         str(root / "cfg.cfg"), "--expdir", str(tmp_path / "exp"),
+         "--epochs", "1", "--num_workers", "2", "--log_steps", "1"],
+        capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    m = re.search(r"epoch 0: tr_loss (\S+) .* kernels (\{.*\})", res.stdout)
+    assert m and np.isfinite(float(m.group(1))), res.stdout[-2000:]
+    # 24 clips / B=4: 6 steps, each one saving forward and one backward;
+    # 6 val clips: 2 eval batches, each one primal forward
+    assert json.loads(m.group(2)) == {"fwd": 2, "fwd_save": 6, "bwd": 6}
