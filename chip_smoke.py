@@ -8,7 +8,8 @@ no result. TF32 is off throughout (cuDNN and matmul).
 1. build        — compile the port's CUDA kernels from
                   ``leaf_tpu_torch/ops/csrc`` (one nvcc per source, together);
                   count the tensor-core instructions (HGMMA/HMMA) in each
-                  library's SASS (``cuobjdump -sass``): none fails
+                  library's SASS (``cuobjdump -sass``), and the bf16 HGMMAs
+                  in the bf16 libraries: none fails
 2. parity       — primal forward kernel vs its plain PyTorch version,
                   B=256, F=40, T ∈ {16000, 12345, 48000}; two launches
                   bit-equal; the worst ratio of error to tolerance
@@ -16,34 +17,43 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   backward kernel (d_bank, d_windows) vs their plain
                   versions and vs autograd through the plain forward, at
                   the same shapes; two launches of each bit-equal
-4. serving      — the flagship LEAF + EfficientNet-b0 classifier (seeded
+4. parity-bf16  — the three bf16 kernels vs their plain bf16 versions at
+                  the same shapes (out, OUT within one bf16 ulp, d_bank,
+                  d_windows); two launches of each bit-equal
+5. serving      — the flagship LEAF + EfficientNet-b0 classifier (seeded
                   random weights) answers requests of 3, 8, 64 and 100 clips
                   through ``ServingModel`` with buckets (8, 64); one primal
                   kernel launch per bucket forward; logits held against the
                   same weights with ``use_fused_kernel='off'`` on the card
-                  and on the CPU
-5. train        — the flagship trains at B=256 × 16000 for 5 steps of
+                  and on the CPU; then the same in bf16 (one bf16 primal
+                  launch per bucket forward, logits held against f32)
+6. train        — the flagship trains at B=256 × 16000 for 5 steps of
                   ``make_train_step`` (augment, dropout, drop-connect on):
                   finite losses, the step counter advances, one saving and
                   one backward kernel launch per step, one primal launch per
-                  eval forward; then 3 steps (augment, dropout, drop-connect
+                  eval forward; the same in bf16 through the bf16 kernels
+                  only; then 3 steps (augment, dropout, drop-connect
                   off) held against ``use_fused_kernel='off'`` on the card,
-                  and 2 steps at B=8 held against the CPU
-6. timings      — each kernel, its plain version and the cuDNN composition
-                  at B=256, T=16000 (CUDA events); serving latency per
-                  bucket; the train step fused vs 'off' and a torch.profiler
-                  split of one step
-7. cli          — the flagship recipe through ``python -m
+                  2 steps at B=8 held against the CPU, and 100 steps of
+                  bf16 against f32 on a tone task (the JAX test's bounds)
+7. timings      — each kernel (f32 and bf16), its plain version and the
+                  cuDNN composition at B=256, T=16000 (CUDA events);
+                  serving latency per bucket, f32 and bf16; the train step
+                  fused, 'off' and bf16, with a torch.profiler split
+8. cli          — the flagship recipe through ``python -m
                   leaf_tpu_torch.train`` / ``.evaluate`` on a synthetic tone
                   task (35 classes; 1024 train, 256 val clips of 1 s, 48
                   test clips of 1–3 s): 2 epochs at B=256 (saving forward =
                   backward launches = steps), SIGTERM mid-epoch and a resume
                   that redoes the epoch, evaluate with BN recalibration
-                  (JAX-format results.txt; a rerun skips); the train loop's
+                  (JAX-format results.txt; a rerun skips), ``train --bf16``
+                  for an epoch and evaluate reading bf16 from its
+                  hparams.json (bf16 kernels only); the train loop's
                   clips/s, each CLI's wall time, and the train DataLoader's
                   clips/s alone (in_memory off and on)
-8. report       — card name and power limit, the ``kernels`` JSON line, and
-                  the last line ``{"ok": true, "device": {...}}``
+9. report       — card name and power limit, the ``kernels`` JSON line (six
+                  kernels: f32 and bf16), and the last line
+                  ``{"ok": true, "device": {...}}``
 
     python3 chip_smoke.py
 """
@@ -116,7 +126,36 @@ TIMED_STEPS = 12
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 F32_PEAK_FLOPS = 67e12
 TF32_PEAK_FLOPS = 494.7e12  # tensor cores
+BF16_PEAK_FLOPS = 989e12    # tensor cores
 HBM_BYTES_PER_S = 3.35e12
+
+
+def _bf16(cfg: dict) -> dict:
+    """``cfg`` under bf16 compute, as ``train --bf16`` sets it."""
+    return {**cfg,
+            "frontend": {**cfg["frontend"], "compute_dtype": "bfloat16"},
+            "model": {**cfg["model"], "compute_dtype": "bfloat16"}}
+
+
+# bf16 kernels vs their plain bf16 versions on the same bf16 operands: out
+# at KERNEL_RTOL / KERNEL_ATOL_REL (the bf16 products are exact in f32,
+# only the order of the f32 sums differs); OUT within one bf16 ulp of the
+# plain OUT plus KERNEL_ATOL_REL·max|OUT| (both round f32 sums that may
+# straddle a rounding point); d_bank, rounded to bf16 once at the end,
+# within one ulp plus GRAD_REL_TOL·max|d_bank| elementwise and
+# GRAD_BF16_TOL of its norm (the rounding flips: 7.4e-5–1.0e-4 on the
+# flagship bank, PERF.md §6); d_windows (f32) at GRAD_REL_TOL.
+GRAD_BF16_TOL = 1e-3
+# serving logits, bf16 vs f32 on the same seeded weights with unit BN
+# statistics: max|a − b| ≤ BF16_LOGIT_TOL·max|b| (1.5e-2–2.2e-2 measured,
+# PERF.md §6). With statistics taken from data the random network
+# amplifies any rounding to the size of the logits, so that state is not
+# used for this check.
+BF16_LOGIT_TOL = 0.05
+# the bf16-vs-f32 trajectory: 100 Adam + warm-up cosine steps on 4
+# batches of TRAJ_B tone clips, cycled, held to the bounds of
+# tests/test_efficientnet_parity.py::test_hundred_steps_bf16_bounded_divergence
+TRAJ_B, TRAJ_STEPS, TRAJ_WARMUP = 64, 100, 6
 
 
 def log(msg: str) -> None:
@@ -138,12 +177,15 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def _sass_counts(path) -> dict:
-    """Tensor-core instructions in a library's SASS (cuobjdump -sass)."""
+    """Tensor-core instructions in a library's SASS (cuobjdump -sass), and
+    the HGMMAs that take bf16 operands."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
-    return {op: sass.count(op + ".") for op in ("HGMMA", "HMMA")}
+    counts = {op: sass.count(op + ".") for op in ("HGMMA", "HMMA")}
+    counts["HGMMA.BF16"] = len(re.findall(r"HGMMA\.\S*BF16", sass))
+    return counts
 
 
 def phase_build():
@@ -158,8 +200,10 @@ def phase_build():
     for name, path in lib.paths.items():
         counts = _sass_counts(path)
         log(f"[build] {name} SASS tensor-core instructions: {counts}")
-        if not sum(counts.values()):
+        if not counts["HGMMA"] + counts["HMMA"]:
             raise AssertionError(f"the {name} library holds no HGMMA/HMMA")
+        if name.endswith("_bf16") and not counts["HGMMA.BF16"]:
+            raise AssertionError(f"the {name} library holds no bf16 HGMMA")
 
 
 def leaf_operands(device):
@@ -291,10 +335,101 @@ def phase_parity_train(device):
     return worst_fwd, worst_bwd
 
 
+def _bf16_ulp(ref):
+    """One bf16 ulp of each entry of ``ref``: 2^(e − 8) for |ref| in
+    [2^(e−1), 2^e)."""
+    _, e = torch.frexp(ref.float())
+    return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), e - 8)
+
+
+def _check_ulp(phase: str, tag: str, got, ref, atol_rel: float) -> float:
+    """|got − ref| ≤ one bf16 ulp of ref + atol_rel·max|ref|, or raise;
+    logs the worst ratio of |got − ref| to that bound and the share of
+    entries that differ at all."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    scale = float(ref.abs().max())
+    ratio = float((err / (_bf16_ulp(ref) + atol_rel * scale)).max())
+    ok = (got.shape == ref.shape and bool(torch.isfinite(got).all())
+          and ratio <= 1.0)
+    log(f"{phase} {tag} shape={tuple(got.shape)} max_abs_err="
+        f"{float(err.max()):.3e} max|ref|={scale:.3e} tol: one bf16 ulp + "
+        f"{atol_rel:g}*max|ref|, worst |d|/tol {ratio:.3f}, "
+        f"{float((err > 0).float().mean()):.4%} of entries differ -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: kernel disagrees with plain")
+    return float(err.max())
+
+
+def phase_parity_bf16(device):
+    """The three bf16 kernels vs their plain bf16 versions: x and the bank
+    in bf16, the windows in f32, B=256, F=40, T ∈ PARITY_T; two launches
+    of each bit-equal."""
+    from leaf_tpu_torch.ops.fused_frontend import (
+        fused_backward_bf16_cuda, fused_backward_reference,
+        fused_forward_bf16_cuda, fused_forward_saving_bf16_cuda,
+        fused_forward_saving_reference, fused_reference)
+    bank, windows = leaf_operands(device)
+    bank = bank.bfloat16()
+    rng = np.random.RandomState(9)
+    x_all = torch.from_numpy(
+        (rng.randn(PARITY_B, max(PARITY_T)) * 0.1).astype(np.float32)
+    ).to(device).bfloat16()
+    worst = {"fwd": 0.0, "fwd_save": 0.0, "bwd": 0.0}
+    for t in PARITY_T:
+        x = x_all[:, :t].contiguous()
+        got = fused_forward_bf16_cuda(x, bank, windows)
+        again = fused_forward_bf16_cuda(x, bank, windows)
+        ref = fused_reference(x, bank, windows)
+        torch.cuda.synchronize()
+        _check_bit_equal("[parity-bf16]", f"fwd T={t}", (got,), (again,))
+        worst["fwd"] = max(worst["fwd"], _check_elementwise(
+            "[parity-bf16]", f"fwd T={t} B={PARITY_B} F={PARITY_F}", got,
+            ref))
+        del got, again
+        out, conv = fused_forward_saving_bf16_cuda(x, bank, windows)
+        again = fused_forward_saving_bf16_cuda(x, bank, windows)
+        ref_out, ref_conv = fused_forward_saving_reference(x, bank, windows)
+        torch.cuda.synchronize()
+        _check_bit_equal("[parity-bf16]", f"saving fwd T={t}", (out, conv),
+                         again)
+        del again
+        if conv.dtype != torch.bfloat16:
+            raise AssertionError(f"OUT is {conv.dtype}, not bf16")
+        worst["fwd_save"] = max(
+            worst["fwd_save"],
+            _check_elementwise("[parity-bf16]", f"saving fwd out T={t}",
+                               out, ref_out),
+            _check_ulp("[parity-bf16]", f"saving fwd OUT T={t}", conv,
+                       ref_conv, KERNEL_ATOL_REL))
+        del ref_conv
+        d_out = torch.from_numpy(
+            rng.randn(*out.shape).astype(np.float32)).to(device)
+        d_bank, d_win = fused_backward_bf16_cuda(x, conv, windows, d_out)
+        again = fused_backward_bf16_cuda(x, conv, windows, d_out)
+        p_bank, p_win = fused_backward_reference(x, conv, windows, d_out)
+        torch.cuda.synchronize()
+        _check_bit_equal("[parity-bf16]", f"bwd T={t}", (d_bank, d_win),
+                         again)
+        rel = float((d_bank.float() - p_bank.float()).norm()
+                    / p_bank.float().norm())
+        log(f"[parity-bf16] bwd d_bank T={t} dtype {d_bank.dtype}: "
+            f"rel-norm {rel:.3e} (tol {GRAD_BF16_TOL:g})")
+        if d_bank.dtype != torch.bfloat16 or rel > GRAD_BF16_TOL:
+            raise AssertionError(f"bwd d_bank T={t}: {d_bank.dtype}, {rel}")
+        worst["bwd"] = max(
+            worst["bwd"],
+            _check_ulp("[parity-bf16]", f"bwd d_bank T={t}", d_bank, p_bank,
+                       GRAD_REL_TOL),
+            _check_grad(f"bwd d_windows T={t} (bf16 kernel)", d_win, p_win))
+        del conv, out, again, p_bank, p_win
+    return worst
+
+
 def phase_serving(device):
     from leaf_tpu_torch.models import Classifier
     from leaf_tpu_torch.models.common import set_batch_norm_stats_
-    from leaf_tpu_torch.ops.fused_frontend import fused_forward_cuda
     from leaf_tpu_torch.serving import ServingModel
 
     rng = np.random.RandomState(1)
@@ -311,16 +446,17 @@ def phase_serving(device):
     requests = {n: (rng.randn(n, 16000) * 0.1).astype(np.float32)
                 for n in REQUEST_SIZES}
 
-    fused_forward_cuda.launches = 0
+    _zero_counts()
     outs = {n: server(requests[n]) for n in REQUEST_SIZES}
     torch.cuda.synchronize()
-    launches = fused_forward_cuda.launches
+    counts = _counts()
+    launches = counts["fwd"]
     forwards = sum(-(-n // BUCKETS[-1]) for n in REQUEST_SIZES)
     log(f"[serving] requests {REQUEST_SIZES} -> {forwards} bucket forwards, "
-        f"kernel launches {launches}")
-    if launches != forwards:
+        f"kernel launches {counts}")
+    if counts != {**_no_launches(), "fwd": forwards}:
         raise AssertionError(f"expected one kernel launch per forward "
-                             f"({forwards}), counted {launches}")
+                             f"({forwards}), counted {counts}")
 
     off_cfg = {**FLAGSHIP_CFG, "frontend": {**FLAGSHIP_CFG["frontend"],
                                             "use_fused_kernel": "off"}}
@@ -347,16 +483,57 @@ def phase_serving(device):
     return launches, server, state
 
 
+def phase_serving_bf16(device):
+    """The flagship in bf16 through ``ServingModel``: one bf16 primal
+    launch per bucket forward and no other; logits held against the same
+    weights in f32 (unit BN statistics, see BF16_LOGIT_TOL)."""
+    from leaf_tpu_torch.models import Classifier
+    from leaf_tpu_torch.serving import ServingModel
+
+    state = Classifier(FLAGSHIP_CFG, device=device,
+                       generator=torch.Generator().manual_seed(0)).state_dict()
+    server = ServingModel(_bf16(FLAGSHIP_CFG), state_dict=state,
+                          device=device, batch_sizes=BUCKETS)
+    rng = np.random.RandomState(11)
+    requests = {n: (rng.randn(n, 16000) * 0.1).astype(np.float32)
+                for n in REQUEST_SIZES}
+    _zero_counts()
+    outs = {n: server(requests[n]) for n in REQUEST_SIZES}
+    torch.cuda.synchronize()
+    counts = _counts()
+    forwards = sum(-(-n // BUCKETS[-1]) for n in REQUEST_SIZES)
+    log(f"[serving-bf16] requests {REQUEST_SIZES} -> {forwards} bucket "
+        f"forwards, kernel launches {counts}")
+    if counts != {**_no_launches(), "fwd_bf16": forwards}:
+        raise AssertionError(f"expected one bf16 primal launch per forward "
+                             f"({forwards}) and no other, counted {counts}")
+    f32 = ServingModel(FLAGSHIP_CFG, state_dict=state, device=device,
+                       batch_sizes=BUCKETS)
+    for n in REQUEST_SIZES:
+        got, ref = outs[n], f32(requests[n])
+        rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+        agree = float((got.argmax(1) == ref.argmax(1)).mean())
+        log(f"[serving-bf16] n={n} logits {got.shape} {got.dtype} "
+            f"max|logit|={np.abs(ref).max():.3e} bf16-vs-f32 rel={rel:.3e} "
+            f"(tol {BF16_LOGIT_TOL:g}), argmax agreement {agree:.0%}")
+        if (got.shape != (n, 35) or got.dtype != np.float32
+                or not np.isfinite(got).all() or rel > BF16_LOGIT_TOL):
+            raise AssertionError(f"bf16 logits disagree for {n} clips: {rel}")
+    return counts["fwd_bf16"], server
+
+
 def _counts() -> dict:
-    from leaf_tpu_torch.train import kernel_launches
-    return kernel_launches()
+    from leaf_tpu_torch.ops.fused_frontend import launch_counts
+    return launch_counts()
 
 
 def _zero_counts() -> None:
-    from leaf_tpu_torch.ops import fused_frontend as ff
-    for fn in (ff.fused_forward_cuda, ff.fused_forward_saving_cuda,
-               ff.fused_backward_cuda):
-        fn.launches = 0
+    from leaf_tpu_torch.ops.fused_frontend import reset_launch_counts
+    reset_launch_counts()
+
+
+def _no_launches() -> dict:
+    return {name: 0 for name in _counts()}
 
 
 def _trainer(cfg, state, device, augment: bool, steps_per_epoch: int,
@@ -382,11 +559,13 @@ def _batch(rng, b: int, device):
     return x.to(device), y.to(device)
 
 
-def phase_train(device, state):
-    """The main training path: 5 steps, then one eval forward."""
+def phase_train(device, state, bf16: bool = False):
+    """The main training path: 5 steps, then one eval forward; under
+    ``bf16`` the recipe of ``train --bf16``, through the bf16 kernels."""
     from leaf_tpu_torch.training import make_eval_step
-    st, step = _trainer(TRAIN_CFG, state, device, True, STEPS_PER_EPOCH,
-                        EPOCHS)
+    sfx, tag = ("_bf16", "[train-bf16]") if bf16 else ("", "[train]")
+    cfg = _bf16(TRAIN_CFG) if bf16 else TRAIN_CFG
+    st, step = _trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS)
     x, y = _batch(np.random.RandomState(5), TRAIN_B, device)
     gen = torch.Generator(device=device).manual_seed(5)
     _zero_counts()
@@ -394,23 +573,24 @@ def phase_train(device, state):
     torch.cuda.synchronize()
     counts = _counts()
     losses = [float(m["loss"]) for m in metrics]
-    log(f"[train] B={TRAIN_B} x 16000, {TRAIN_STEPS} steps (augment, "
+    log(f"{tag} B={TRAIN_B} x 16000, {TRAIN_STEPS} steps (augment, "
         f"dropout 0.2, drop-connect 0.2 on): losses "
-        f"{', '.join(f'{v:.6f}' for v in losses)}; step counter {st.step}; "
-        f"kernel launches {counts}")
+        f"{', '.join(f'{v:.6f}' for v in losses)} ({metrics[0]['loss'].dtype}); "
+        f"step counter {st.step}; kernel launches {counts}")
     if not (all(np.isfinite(losses)) and st.step == TRAIN_STEPS):
         raise AssertionError(f"train steps failed: {losses}, step {st.step}")
-    if counts != {"fwd": 0, "fwd_save": TRAIN_STEPS, "bwd": TRAIN_STEPS}:
+    if counts != {**_no_launches(), "fwd_save" + sfx: TRAIN_STEPS,
+                  "bwd" + sfx: TRAIN_STEPS}:
         raise AssertionError(f"expected one saving-forward and one backward "
-                             f"launch per step, counted {counts}")
+                             f"launch per step and no other, counted {counts}")
     _zero_counts()
     out = make_eval_step()(st, x, y)
     torch.cuda.synchronize()
     eval_counts = _counts()
-    log(f"[train] eval forward: loss {float(out['loss']):.6f}, correct "
+    log(f"{tag} eval forward: loss {float(out['loss']):.6f}, correct "
         f"{int(out['correct'])}/{int(out['count'])}, kernel launches "
         f"{eval_counts}")
-    if (eval_counts != {"fwd": 1, "fwd_save": 0, "bwd": 0}
+    if (eval_counts != {**_no_launches(), "fwd" + sfx: 1}
             or not bool(torch.isfinite(out["outputs"]).all())
             or tuple(out["outputs"].shape) != (TRAIN_B, 35)):
         raise AssertionError(f"eval forward failed: {eval_counts}")
@@ -483,6 +663,42 @@ def phase_train_parity(device, state):
         _compare_runs(tag, runs[0][0], runs[1][0], p0, runs[0][1], runs[1][1])
 
 
+def phase_trajectory(device, state):
+    """bf16 against f32 over TRAJ_STEPS Adam + warm-up cosine steps on the
+    tone task, from the same weights on the same 4 batches (augment,
+    dropout and drop-connect off), held to the JAX test's bounds."""
+    rng = np.random.RandomState(12)
+    t = np.arange(16000) / 16000
+    labels = np.arange(4 * TRAJ_B) % CLI_CLASSES
+    waves = np.stack([_tone(rng, c, t) for c in labels])
+    waves += 0.05 * rng.randn(*waves.shape)
+    x = torch.from_numpy(waves.astype(np.float32)).to(device)
+    y = torch.from_numpy(labels.astype(np.int64)).to(device)
+    curves = {}
+    for tag, cfg in (("f32", PARITY_CFG), ("bf16", _bf16(PARITY_CFG))):
+        st, step = _trainer(cfg, state, device, False, TRAJ_WARMUP,
+                            TRAJ_STEPS // TRAJ_WARMUP)
+        t0 = time.perf_counter()
+        losses = [step(st, x[lo:lo + TRAJ_B], y[lo:lo + TRAJ_B])["loss"]
+                  for lo in ((i % 4) * TRAJ_B for i in range(TRAJ_STEPS))]
+        curves[tag] = np.array([float(v) for v in losses])
+        log(f"[trajectory] {tag}: {TRAJ_STEPS} steps at B={TRAJ_B} in "
+            f"{time.perf_counter() - t0:.1f} s, losses "
+            + ", ".join(f"{v:.4f}" for v in curves[tag][::10])
+            + f" ... {curves[tag][-1]:.4f}")
+    f, b = curves["f32"], curves["bf16"]
+    first = abs(b[0] - f[0])
+    med = float(np.median(np.abs(b - f) / np.maximum(np.abs(f), 0.1)))
+    tail = abs(b[-10:].mean() - f[-10:].mean()) / max(f[-10:].mean(), 0.1)
+    ok = first < 0.05 and med < 0.25 and tail < 0.25 and b[-1] < 0.5 * b[0]
+    log(f"[trajectory] bf16 vs f32: first-loss gap {first:.4f} (< 0.05), "
+        f"median relative gap {med:.4f} (< 0.25), tail gap {tail:.4f} "
+        f"(< 0.25), last/first bf16 {b[-1] / b[0]:.3f} (< 0.5) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("bf16 trajectory diverged from f32")
+
+
 def _is_device_work(event) -> bool:
     """A kernel or copy on the card; not a user annotation (such as
     ``Optimizer.step#Adam.step``), whose span covers kernels already
@@ -492,7 +708,8 @@ def _is_device_work(event) -> bool:
             and not getattr(event, "is_user_annotation", False))
 
 
-def profile_requests(server, req, latency_ms: float, n: int = 5) -> None:
+def profile_requests(server, req, latency_ms: float, tag: str,
+                     n: int = 5) -> None:
     """Device time per request by kernel (torch.profiler), and the share of
     the unprofiled median latency the device sits idle."""
     from torch.profiler import ProfilerActivity, profile
@@ -509,7 +726,7 @@ def profile_requests(server, req, latency_ms: float, n: int = 5) -> None:
         return
     launches = sum(k[1] for k in kernels)
     fused = sum(k[0] for k in kernels if "fused_fwd" in k[2])
-    log(f"[profile] bucket {len(req)}: device busy {busy:.3f} ms per request "
+    log(f"[profile] {tag}: device busy {busy:.3f} ms per request "
         f"({launches} kernels), idle {1 - busy / latency_ms:.1%} of the "
         f"{latency_ms:.3f} ms median; fused frontend kernel {fused:.3f} ms "
         f"({fused / busy:.1%} of device time)")
@@ -517,20 +734,24 @@ def profile_requests(server, req, latency_ms: float, n: int = 5) -> None:
         log(f"[profile]   {ms:.3f} ms  x{count}  {name[:90]}")
 
 
-def _bound(flops: float, nbytes: float, tc_flops: float = 0.0) -> dict:
+def _bound(flops: float, nbytes: float, tc_flops: float = 0.0,
+           tc_peak: float = TF32_PEAK_FLOPS) -> dict:
     """Least time for ``flops`` f32 operations on the CUDA cores plus
-    ``tc_flops`` TF32 operations on the tensor cores, or for ``nbytes``."""
-    flop_ms = (flops / F32_PEAK_FLOPS + tc_flops / TF32_PEAK_FLOPS) * 1e3
+    ``tc_flops`` tensor-core operations at ``tc_peak`` (TF32 unless
+    named), or for ``nbytes``."""
+    flop_ms = (flops / F32_PEAK_FLOPS + tc_flops / tc_peak) * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(flop_ms, byte_ms),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
 
 
-def phase_timings(device, server):
+def phase_timings(device, servers):
     import torch.nn.functional as F
 
     from leaf_tpu_torch.ops.fused_frontend import (
-        fused_backward_cuda, fused_backward_reference, fused_forward_cuda,
+        fused_backward_bf16_cuda, fused_backward_cuda,
+        fused_backward_reference, fused_forward_bf16_cuda,
+        fused_forward_cuda, fused_forward_saving_bf16_cuda,
         fused_forward_saving_cuda, fused_forward_saving_reference,
         fused_reference, lowpass_frames_out)
     b, t = 256, 16000
@@ -596,36 +817,93 @@ def phase_timings(device, server):
             lib_out, (wr, wnr), d_out.transpose(1, 2), retain_graph=True)),
         **_bound(bwd_flops - conv_flops, bwd_bytes, 3 * conv_flops)}
     del conv, lib_out
+
+    # bf16: x, the bank and OUT in bf16 (2 bytes), the windows, out, dY and
+    # d_windows in f32; the conv correlation once on the tensor cores at
+    # the bf16 rate. The library is the same cuDNN composition in bf16
+    # (conv1d → square → grouped strided conv1d), which rounds the conv
+    # output and S to bf16 where the kernels keep them in f32: not the
+    # same rounding, the same work.
+    xb, bankb = x.bfloat16(), bank.bfloat16()
+    weightb, winb = weight.bfloat16(), win.bfloat16()
+
+    def library_bf16(w=weightb, wn=winb):
+        out = F.conv1d(xb[:, None, :], w, padding=200)
+        s = out[:, :f] ** 2 + out[:, f:] ** 2
+        return F.conv1d(s, wn, stride=160, padding=200, groups=f)
+
+    in_b16 = 2 * (b * t + 401 * 2 * f) + 4 * f * 401
+    conv_b16 = 2 * b * 2 * f * t
+    fwd_b16 = in_b16 + out_bytes
+    results["fwd_bf16"] = {
+        "ms": cuda_time_ms(lambda: fused_forward_bf16_cuda(xb, bankb,
+                                                           windows)),
+        "plain_ms": cuda_time_ms(
+            lambda: fused_reference(xb, bankb, windows)),
+        "library_ms": cuda_time_ms(library_bf16),
+        **_bound(fwd_flops - conv_flops, fwd_b16, conv_flops,
+                 BF16_PEAK_FLOPS)}
+    results["fwd_save_bf16"] = {
+        "ms": cuda_time_ms(lambda: fused_forward_saving_bf16_cuda(
+            xb, bankb, windows)),
+        "plain_ms": cuda_time_ms(
+            lambda: fused_forward_saving_reference(xb, bankb, windows)),
+        "library_ms": results["fwd_bf16"]["library_ms"],
+        **_bound(fwd_flops - conv_flops, fwd_b16 + conv_b16, conv_flops,
+                 BF16_PEAK_FLOPS)}
+    _, conv = fused_forward_saving_bf16_cuda(xb, bankb, windows)
+    wr = weightb.clone().requires_grad_()
+    wnr = winb.clone().requires_grad_()
+    lib_out = library_bf16(wr, wnr)
+    d_out_b = d_out.bfloat16().transpose(1, 2)
+    results["bwd_bf16"] = {
+        "ms": cuda_time_ms(lambda: fused_backward_bf16_cuda(
+            xb, conv, windows, d_out)),
+        "plain_ms": cuda_time_ms(
+            lambda: fused_backward_reference(xb, conv, windows, d_out)),
+        "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
+            lib_out, (wr, wnr), d_out_b, retain_graph=True)),
+        **_bound(bwd_flops - conv_flops,
+                 in_b16 + conv_b16 + out_bytes + 2 * 401 * 2 * f
+                 + 4 * f * 401, conv_flops, BF16_PEAK_FLOPS)}
+    del conv, lib_out, xb
     for name, r in results.items():
-        log(f"[timing] {name} kernel B={b} T={t} F={f} f32: {r['ms']:.4f} ms "
-            f"({r['bound_ms'] / r['ms']:.1%} of the {r['bound_by']} bound "
-            f"{r['bound_ms']:.4f} ms); plain version {r['plain_ms']:.4f} ms; "
-            f"cuDNN composition (library) {r['library_ms']:.4f} ms")
+        dtype = "bf16" if name.endswith("_bf16") else "f32"
+        log(f"[timing] {name} kernel B={b} T={t} F={f} {dtype}: "
+            f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of the "
+            f"{r['bound_by']} bound {r['bound_ms']:.4f} ms); plain version "
+            f"{r['plain_ms']:.4f} ms; cuDNN composition (library) "
+            f"{r['library_ms']:.4f} ms")
     # each kernel against both bounds: its conv correlation in f32 on the
     # CUDA cores, or three times (3×TF32) on the tensor cores
     fma_bounds = {"fwd": _bound(fwd_flops, fwd_bytes),
                   "fwd_save": _bound(fwd_flops, fwd_bytes + conv_bytes),
                   "bwd": _bound(bwd_flops, bwd_bytes)}
     for name, r in results.items():
+        if name not in fma_bounds:
+            continue
         ms, tc_ms = r["ms"], r["bound_ms"]
         fma_ms = fma_bounds[name]["bound_ms"]
         log(f"[timing] {name} bounds: f32 FMA {fma_ms:.4f} ms "
             f"({fma_ms / ms:.1%} of the kernel's time), 3×TF32 tensor cores "
             f"{tc_ms:.4f} ms ({tc_ms / ms:.1%})")
 
-    for bucket in BUCKETS:
-        req = (rng.randn(bucket, 16000) * 0.1).astype(np.float32)
-        for _ in range(3):
-            server(req)
-        lat = []
-        for _ in range(20):
-            t0 = time.perf_counter()
-            server(req)  # returns host numpy: ends in a device sync
-            lat.append((time.perf_counter() - t0) * 1e3)
-        log(f"[timing] serving bucket {bucket}: median {np.median(lat):.3f} "
-            f"ms, p90 {np.percentile(lat, 90):.3f} ms per request of "
-            f"{bucket} clips (host clock, 20 requests)")
-        profile_requests(server, req, float(np.median(lat)))
+    for dtype, server in servers.items():
+        for bucket in BUCKETS:
+            req = (rng.randn(bucket, 16000) * 0.1).astype(np.float32)
+            for _ in range(3):
+                server(req)
+            lat = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                server(req)  # returns host numpy: ends in a device sync
+                lat.append((time.perf_counter() - t0) * 1e3)
+            log(f"[timing] serving {dtype} bucket {bucket}: median "
+                f"{np.median(lat):.3f} ms, p90 {np.percentile(lat, 90):.3f} "
+                f"ms per request of {bucket} clips (host clock, 20 "
+                f"requests)")
+            profile_requests(server, req, float(np.median(lat)),
+                             f"{dtype} bucket {bucket}")
     return results
 
 
@@ -637,7 +915,8 @@ def phase_train_timing(device, state):
                                          "use_fused_kernel": "off"}}
     x, y = _batch(np.random.RandomState(7), TRAIN_B, device)
     medians = {}
-    for tag, cfg in (("fused", TRAIN_CFG), ("off", off_cfg)):
+    for tag, cfg in (("fused", TRAIN_CFG), ("off", off_cfg),
+                     ("bf16", _bf16(TRAIN_CFG))):
         st, step = _trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS)
         gen = torch.Generator(device=device).manual_seed(8)
         for _ in range(3):
@@ -654,7 +933,7 @@ def phase_train_timing(device, state):
             f"{medians[tag]:.3f} ms/step ({TRAIN_B / medians[tag] * 1e3:.1f} "
             f"clips/s), min {min(times):.3f}, max {max(times):.3f} "
             f"({TIMED_STEPS} steps after 3 warm-up, host clock, TF32 off)")
-        if tag != "fused":
+        if tag == "off":
             continue
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -669,7 +948,7 @@ def phase_train_timing(device, state):
             continue
         front = sum(ms for ms, k in kernels
                     if "fused_fwd" in k or "fused_bwd" in k)
-        log(f"[profile] train step (fused): device busy {busy:.3f} ms of the "
+        log(f"[profile] train step ({tag}): device busy {busy:.3f} ms of the "
             f"{medians[tag]:.3f} ms median (idle {1 - busy / medians[tag]:.1%}); "
             f"frontend kernels {front:.3f} ms ({front / busy:.1%} of busy), "
             f"everything else (backbone, optimizer, PCEN, augment, loss) "
@@ -907,6 +1186,43 @@ def phase_cli(tmp: str) -> dict:
         if "skipping" not in out or f.read() != body:
             raise AssertionError("the second evaluate did not skip")
 
+    # bf16: train --bf16 saves compute_dtype bfloat16 in hparams.json,
+    # runs the bf16 kernels only; evaluate reads bf16 from it
+    bexp = os.path.join(tmp, "exp_bf16")
+    out, walls["train --bf16"] = _cli(
+        "train", ["--cfg_file", cfg_file, "--expdir", bexp, "--num_workers",
+                  "4", "--epochs", "1", "--bf16"], "train --bf16 --epochs 1")
+    epochs = _epoch_lines(out)
+    counts = epochs[-1][4] if len(epochs) == 1 else {}
+    with open(os.path.join(bexp, "hparams.json")) as f:
+        hp = json.load(f)
+    dtypes = (hp["frontend"].get("compute_dtype"),
+              hp["model"].get("compute_dtype"))
+    if (len(epochs) != 1 or not np.isfinite(epochs[0][1])
+            or dtypes != ("bfloat16", "bfloat16")
+            or counts.get("fwd_save_bf16") != steps
+            or counts.get("bwd_bf16") != steps
+            or counts.get("fwd_bf16", 0) < val_batches
+            or any(counts.get(k) for k in ("fwd", "fwd_save", "bwd"))):
+        raise AssertionError(f"train --bf16: epochs {epochs}, hparams "
+                             f"compute dtypes {dtypes}")
+    log(f"[cli] train --bf16: hparams.json compute_dtype {dtypes}; loss "
+        f"{epochs[0][1]}; kernel launches {counts}")
+    out, walls["evaluate (bf16)"] = _cli(
+        "evaluate", ["--exp_dir", bexp, "--meta_dir", tmp, "--test_csv_name",
+                     "test.csv"], "evaluate (the bf16 run)")
+    ev_counts = re.findall(r"^kernels (\{.*\})$", out, re.M)
+    ev_counts = json.loads(ev_counts[-1]) if ev_counts else {}
+    with open(os.path.join(bexp, "results.txt")) as f:
+        rows = f.read().splitlines()
+    if ("compute dtype: frontend torch.bfloat16, model torch.bfloat16"
+            not in out or len(rows) != 2 or not ev_counts.get("fwd_bf16")
+            or any(ev_counts.get(k) for k in ("fwd", "fwd_save", "bwd"))):
+        raise AssertionError(f"evaluate of the bf16 run: {rows}, "
+                             f"{ev_counts}")
+    log(f"[cli] evaluate (bf16 from hparams.json): {rows[1]}; kernel "
+        f"launches {ev_counts}")
+
     loader = {(mem, w): _time_loader(cfg, mem, w)
               for mem, w in ((False, 1), (False, 4), (True, 4))}
     for (mem, w), rates in loader.items():
@@ -939,12 +1255,16 @@ def main() -> int:
     phase_build()
     max_abs_err = phase_parity(device)
     fwd_save_err, bwd_err = phase_parity_train(device)
+    bf16_err = phase_parity_bf16(device)
     launches, server, state = phase_serving(device)
+    bf16_launches, server_bf16 = phase_serving_bf16(device)
     train_counts = phase_train(device, state)
+    bf16_counts = phase_train(device, state, bf16=True)
     phase_train_parity(device, state)
-    timing = phase_timings(device, server)
+    phase_trajectory(device, state)
+    timing = phase_timings(device, {"f32": server, "bf16": server_bf16})
     phase_train_timing(device, state)
-    del server, state
+    del server, server_bf16, state
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="leaf_cli_") as tmp:
         phase_cli(tmp)
@@ -971,6 +1291,21 @@ def main() -> int:
          "replaces": "leaf_tpu/ops/fused_frontend.py:422",
          "launches": train_counts["bwd"], "max_abs_err": bwd_err,
          **timing["bwd"]},
+        {"name": "fused_gabor_sqmod_lowpass_fwd_bf16", "route": "cuda",
+         "source": src + "fused_frontend_bf16.cu",
+         "replaces": "leaf_tpu/ops/fused_frontend.py:325",
+         "launches": bf16_launches, "max_abs_err": bf16_err["fwd"],
+         **timing["fwd_bf16"]},
+        {"name": "fused_gabor_sqmod_lowpass_fwd_saving_bf16", "route": "cuda",
+         "source": src + "fused_frontend_bf16.cu",
+         "replaces": "leaf_tpu/ops/fused_frontend.py:336",
+         "launches": bf16_counts["fwd_save_bf16"],
+         "max_abs_err": bf16_err["fwd_save"], **timing["fwd_save_bf16"]},
+        {"name": "fused_gabor_sqmod_lowpass_bwd_bf16", "route": "cuda",
+         "source": src + "fused_frontend_bwd_bf16.cu",
+         "replaces": "leaf_tpu/ops/fused_frontend.py:422",
+         "launches": bf16_counts["bwd_bf16"], "max_abs_err": bf16_err["bwd"],
+         **timing["bwd_bf16"]},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,10 @@ into 1-second windows, and scored as the MEAN of per-window logits
 (reference: test.py:57-71,126-128); clips are batched by window count.
 Multiclass reports accuracy; multilabel reports mAP/mAUC/d-prime.
 Results go to <exp_dir>/results.txt in the JAX ``evaluate.py``'s format, and a run
-whose results.txt exists skips.
+whose results.txt exists skips. The cfg, and with it the compute dtype
+(bf16 after ``train --bf16``), is the run's saved ``hparams.json``, as
+the JAX ``evaluate.py`` reads its saved cfg; the logits are scored in
+f32, and the run ends by printing the fused kernels' launch counts.
 
 Example:
 
@@ -17,6 +20,7 @@ Example:
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import os
 from typing import List, Tuple
@@ -30,6 +34,7 @@ from leaf_tpu_torch.data import (RawWaveformDataset, leaf_host_crop_transforms,
                                  setup_dataloaders)
 from leaf_tpu_torch.data.transforms import Compose, PeakNormalization
 from leaf_tpu_torch.models import Classifier
+from leaf_tpu_torch.ops.fused_frontend import launch_counts
 from leaf_tpu_torch.training import TrainState
 from leaf_tpu_torch.training.bn_recalibrate import recalibrate_batch_stats
 from leaf_tpu_torch.training.checkpoint import (best_checkpoint,
@@ -191,7 +196,9 @@ def main(argv=None) -> int:
                        generator=torch.Generator().manual_seed(0))
     state, meta = load_checkpoint(ckpt, TrainState(model, None),
                                   with_opt=False)
-    print(f"loaded {ckpt} (val metric {meta.get('val_acc', 'n/a')})")
+    print(f"loaded {ckpt} (val metric {meta.get('val_acc', 'n/a')}); "
+          f"compute dtype: frontend {model.features.compute_dtype}, model "
+          f"{model.model.compute_dtype}")
     if args.bn_recalibrate > 0:
         _recalibrate(args, state, ac, sr, device)
 
@@ -206,6 +213,7 @@ def main(argv=None) -> int:
         gts = [np.asarray(y, dtype=np.float32)[None] for y in labels]
     summary, body = results_text(cfg, args.metrics, preds, gts, ckpt_name)
     print(summary)
+    print(f"kernels {json.dumps(launch_counts())}")
     with open(res_path, "w") as fd:
         fd.write(body)
     return 0

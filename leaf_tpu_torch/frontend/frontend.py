@@ -71,6 +71,13 @@ class Leaf(nn.Module):
     the geometry does not fit it; ``'auto'`` takes the kernel for CUDA
     inputs when preemp is off and the window is 401 taps at stride 160.
     The parameters are the same either way.
+
+    ``compute_dtype`` (``torch.float32`` or ``torch.bfloat16``) is the
+    JAX package's: the waveform is cast to it after preemp, the Gabor
+    conv and the squared modulus run in it (the fused op: x and the bank
+    in it, the windows f32), the lowpass sums in f32 from its operands,
+    and the clamp and PCEN stay f32. The parameters stay f32 and are
+    cast where they are used.
     """
 
     def __init__(self, n_filters: int = 40, sample_rate: int = 16000,
@@ -80,12 +87,16 @@ class Leaf(nn.Module):
                  pcen_compression: bool = True,
                  use_legacy_complex: bool = False,
                  initializer: Union[str, Callable] = "default",
-                 use_fused_kernel: str = "auto", device=None,
+                 use_fused_kernel: str = "auto",
+                 compute_dtype: torch.dtype = torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if use_fused_kernel not in _FUSED_MODES:
             raise ValueError(f"use_fused_kernel must be one of {_FUSED_MODES},"
                              f" got {use_fused_kernel!r}")
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be torch.float32 or "
+                             f"torch.bfloat16, got {compute_dtype!r}")
         self.n_filters = n_filters
         # int(sr * window_len // 1000 + 1) and int(sr * window_stride // 1000),
         # reference frontend.py:38-39
@@ -95,6 +106,7 @@ class Leaf(nn.Module):
         self.mean_var_norm = mean_var_norm
         self.use_legacy_complex = use_legacy_complex  # config-parity no-op
         self.use_fused_kernel = use_fused_kernel
+        self.compute_dtype = compute_dtype
         if preemp:
             self._preemp = Preemphasis(device=device)
         self._complex_conv = convolution.GaborConv1d(
@@ -134,6 +146,7 @@ class Leaf(nn.Module):
         x = x.to(torch.float32)
         if self.preemp:
             x = self._preemp(x)
+        x = x.to(self.compute_dtype)
 
         if self._fused_applicable(x):
             # imported here: the op's plain version uses frontend.pooling
@@ -142,7 +155,7 @@ class Leaf(nn.Module):
             bank = self._complex_conv.emit_filters()
             windows, bias = self._pooling.emit_windows()
             out = fused_gabor_sqmod_lowpass(
-                x[:, 0, :], bank, windows, self.stride,
+                x[:, 0, :], bank.to(x.dtype), windows, self.stride,
                 tf_same_padding_1d(self.window_size))
             out = out + bias
         else:

@@ -17,7 +17,19 @@ import torch
 from leaf_tpu_torch import resolve_device
 from leaf_tpu_torch.frontend.frontend import Leaf
 
-__all__ = ["get_frontend"]
+__all__ = ["get_frontend", "compute_dtype_of"]
+
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(section: dict) -> torch.dtype:
+    """A cfg section's ``compute_dtype`` (default float32) as a torch
+    dtype; the JAX package's two names only."""
+    name = section.get("compute_dtype", "float32")
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of "
+                         f"{tuple(_COMPUTE_DTYPES)}, got {name!r}")
+    return _COMPUTE_DTYPES[name]
 
 
 def get_frontend(opt: dict, device=None,
@@ -29,16 +41,11 @@ def get_frontend(opt: dict, device=None,
 
     if "leaf" not in front_end_config["name"].lower():
         raise NotImplementedError("Other front ends not implemented yet.")
-    compute_dtype = front_end_config.get("compute_dtype", "float32")
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"frontend compute_dtype {compute_dtype!r}: the port runs float32 "
-            "only so far (bf16 compute is a later slice)")
-
     common = dict(
         use_legacy_complex=front_end_config.get("use_legacy_complex", False),
         initializer=front_end_config.get("initializer", "default"),
         use_fused_kernel=front_end_config.get("use_fused_kernel", "auto"),
+        compute_dtype=compute_dtype_of(front_end_config),
         device=device, generator=generator)
     if front_end_config.get("default_args", False):
         return Leaf(**common)

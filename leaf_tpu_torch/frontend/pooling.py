@@ -27,9 +27,12 @@ def depthwise_strided_conv(x: torch.Tensor, windows: torch.Tensor,
 
     out[b,f,c] = Σ_k x_pad[b, f·H + k, c] · w[c, k], H = stride, with
     F = (T + pl + pr − K)//H + 1. Channels-last, as the JAX function.
+    The windows are rounded to x's dtype and the sums are f32, as are
+    the outputs: under bf16 operands that is the JAX function's
+    ``preferred_element_type=float32`` (each product is exact in f32).
     """
-    out = F.conv1d(F.pad(x.transpose(1, 2), pad),
-                   windows.to(x.dtype)[:, None, :], stride=stride,
+    out = F.conv1d(F.pad(x.transpose(1, 2), pad).float(),
+                   windows.to(x.dtype).float()[:, None, :], stride=stride,
                    groups=windows.shape[0])
     return out.transpose(1, 2)
 

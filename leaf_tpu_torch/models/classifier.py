@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from leaf_tpu_torch import resolve_device
-from leaf_tpu_torch.frontend.helper import get_frontend
+from leaf_tpu_torch.frontend.helper import compute_dtype_of, get_frontend
 from leaf_tpu_torch.models.efficientnet import VALID_MODELS, EfficientNet
 
 __all__ = ["Classifier", "get_classifier"]
@@ -55,13 +55,11 @@ def get_classifier(opt: dict, device=None,
     if f"efficientnet-{variant}" not in VALID_MODELS:
         raise ValueError(
             f"Invalid value {variant} of depth for efficientnet arch")
-    if opt.get("compute_dtype", "float32") != "float32":
-        raise NotImplementedError(
-            "model compute_dtype other than float32 is a later slice")
     kw = {k: float(opt[k]) for k in ("dropout_rate", "drop_connect_rate")
           if k in opt}
     return EfficientNet(model_name=f"efficientnet-{variant}",
                         num_classes=opt["num_classes"],
+                        compute_dtype=compute_dtype_of(opt),
                         device=resolve_device(device), generator=generator,
                         **kw)
 

@@ -9,8 +9,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["BatchNorm2d", "Conv2dSame", "drop_connect", "dropout",
-           "global_avg_pool", "lecun_normal_init_"]
+__all__ = ["BatchNorm2d", "Conv2d", "Conv2dSame", "drop_connect",
+           "dropout", "global_avg_pool", "lecun_normal_init_", "sigmoid",
+           "silu", "silu_mean"]
 
 # the standard deviation of a unit normal truncated at ±2 (jax.nn's
 # variance_scaling divides by it so that the truncated draw keeps its scale)
@@ -27,21 +28,58 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``torch.nn.BatchNorm2d`` would put the unbiased variance there. Eval
     mode is torch's. The state_dict keys are torch's, so weights load and
     export unchanged.
+
+    ``out_dtype`` is Flax's ``BatchNorm(dtype=...)``: the statistics, the
+    running-stat update and the normalisation run in f32 (a bf16 input is
+    widened), and the output is rounded to ``out_dtype`` (None: the
+    input's dtype).
     """
 
+    def __init__(self, *args, out_dtype: Optional[torch.dtype] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.out_dtype = out_dtype
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_dtype = self.out_dtype or x.dtype
+        x = x.float()
         if not self.training:
-            return super().forward(x)
+            return super().forward(x).to(out_dtype)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+                            self.eps).to(out_dtype)
 
 
-class Conv2dSame(nn.Conv2d):
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d as Flax's ``nn.Conv(dtype=...)`` computes it: the f32
+    parameters are rounded to the input's dtype at use and stay f32.
+
+    A bf16 input gives the f32 sums of the bf16 products, unrounded: in
+    EfficientNet every conv feeds a BatchNorm, which normalises in f32,
+    and XLA hands it the conv's f32 result rather than rounding it to bf16
+    and widening it again; ``BatchNorm2d(out_dtype=...)`` rounds after
+    it. The products of bf16 values are exact in f32, so this is an f32
+    conv of the rounded operands.
+    """
+
+    def _operands(self, x: torch.Tensor):
+        """(x, weight, bias) as the conv takes them: the parameters at x's
+        dtype, and under bf16 all three widened to f32."""
+        weight = self.weight.to(x.dtype)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        if x.dtype != torch.bfloat16:
+            return x, weight, bias
+        return x.float(), weight.float(), None if bias is None else bias.float()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*self._operands(x))
+
+
+class Conv2dSame(Conv2d):
     """Conv2d with TensorFlow/Flax ``padding='SAME'``.
 
     Per spatial axis: out = ⌈in / stride⌉ and the total padding
@@ -58,8 +96,25 @@ class Conv2dSame(nn.Conv2d):
             pads += [total // 2, total - total // 2]
         if any(pads):
             x = F.pad(x, pads)
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0,
-                        self.dilation, self.groups)
+        return F.conv2d(*self._operands(x), self.stride, 0, self.dilation,
+                        self.groups)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` at x's dtype. Under bf16 it is computed as XLA
+    expands ``lax.logistic`` for bf16, 1 / (1 + exp(−x)) with each op
+    rounded to bf16; f32 takes ``torch.sigmoid``."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``flax.linen.silu``: x · sigmoid(x), the product rounded to x's
+    dtype (``F.silu`` in f32)."""
+    if x.dtype != torch.bfloat16:
+        return F.silu(x)
+    return x * sigmoid(x)
 
 
 def _keep_mask(shape, rate: float, x: torch.Tensor,
@@ -67,6 +122,12 @@ def _keep_mask(shape, rate: float, x: torch.Tensor,
     """Bernoulli(1 − rate) as ``uniform < 1 − rate``, as jax.random does."""
     return torch.rand(shape, generator=generator, device=x.device,
                       dtype=torch.float32) < 1.0 - rate
+
+
+def _weak(value: float, x: torch.Tensor) -> torch.Tensor:
+    """A Python scalar as JAX's weak typing gives it to an op on x: rounded
+    to x's dtype (0.8 is 0.80078125 in bf16)."""
+    return torch.tensor(value, dtype=x.dtype, device=x.device)
 
 
 def drop_connect(x: torch.Tensor, rate: float,
@@ -79,7 +140,7 @@ def drop_connect(x: torch.Tensor, rate: float,
     device; None takes that device's default generator.
     """
     keep = _keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), rate, x, generator)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    return torch.where(keep, x / _weak(1.0 - rate, x), torch.zeros_like(x))
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -89,12 +150,21 @@ def dropout(x: torch.Tensor, rate: float,
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = _keep_mask(x.shape, rate, x, generator)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    return torch.where(keep, x / _weak(1.0 - rate, x), torch.zeros_like(x))
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool2d((1,1)) + flatten: (B, C, H, W) → (B, C)."""
     return x.mean(dim=(2, 3))
+
+
+def silu_mean(x: torch.Tensor) -> torch.Tensor:
+    """``global_avg_pool(silu(x))`` as XLA computes it under bf16: the
+    mean sums the f32 products x · sigmoid(x) (sigmoid at x's dtype, see
+    ``sigmoid``) before silu's rounding, and is rounded to x's dtype."""
+    if x.dtype != torch.bfloat16:
+        return global_avg_pool(silu(x))
+    return global_avg_pool(x.float() * sigmoid(x).float()).to(x.dtype)
 
 
 @torch.no_grad()
@@ -108,7 +178,7 @@ def set_batch_norm_stats_(model: nn.Module, x: torch.Tensor) -> None:
     the head; after this they stay O(1), so checks compare real numbers.
     """
     def hook(bn, inputs):
-        h = inputs[0]
+        h = inputs[0].float()
         bn.running_mean.copy_(h.mean(dim=(0, 2, 3)))
         bn.running_var.copy_(h.var(dim=(0, 2, 3), unbiased=False))
 

@@ -19,6 +19,15 @@ Train mode (``model.train()``) draws dropout and drop-connect masks from
 the ``generator`` passed to ``forward`` (None: the device's default
 generator); its numbers differ from the JAX package's PRNG streams, so
 the tests hold them by their distributions.
+
+``compute_dtype=torch.bfloat16`` is the JAX package's ``dtype=bfloat16``
+as XLA computes it: the image is cast once; each conv sums its bf16
+products in f32 and hands the f32 result to its BatchNorm, which
+normalises in f32 and returns bf16 (``common.Conv2d``); silu, the
+squeeze-excite dense layers and gate, drop-connect, dropout and the fc
+run in bf16, each op rounded (``common.sigmoid``), the squeeze and the
+head's pooling average the unrounded silu products (``common.silu_mean``);
+the logits are bf16 and the parameters f32.
 """
 
 from __future__ import annotations
@@ -32,9 +41,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from leaf_tpu_torch.models.common import (BatchNorm2d, Conv2dSame,
+from leaf_tpu_torch.models.common import (BatchNorm2d, Conv2d, Conv2dSame,
                                           drop_connect, dropout,
-                                          global_avg_pool, lecun_normal_init_)
+                                          lecun_normal_init_, sigmoid, silu,
+                                          silu_mean)
 
 __all__ = [
     "BlockArgs",
@@ -166,25 +176,35 @@ def get_model_params(model_name: str, num_classes: int = 1000,
     return blocks, gp
 
 
-def _bn(channels: int, momentum: float, eps: float, device) -> BatchNorm2d:
+def _dense(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor) -> torch.Tensor:
+    """x @ weight.T + bias at x's dtype, the product and the sum each
+    rounded to it (Flax's ``Dense`` and ``_PointwiseDense``)."""
+    return F.linear(x, weight.to(x.dtype)) + bias.to(x.dtype)
+
+
+def _bn(channels: int, momentum: float, eps: float, device,
+        dtype: torch.dtype) -> BatchNorm2d:
     # Flax's momentum m keeps m of the old running value; torch's keeps 1 − m.
     return BatchNorm2d(channels, eps=eps, momentum=1.0 - momentum,
-                       device=device)
+                       device=device, out_dtype=dtype)
 
 
 class MBConvBlock(nn.Module):
     """Mobile inverted bottleneck with SE (reference: model.py:36-140), NCHW."""
 
     def __init__(self, block_args: BlockArgs, bn_momentum: float,
-                 bn_epsilon: float, device=None):
+                 bn_epsilon: float, device=None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         ba = self.block_args = block_args
         inp = ba.input_filters
         oup = ba.input_filters * ba.expand_ratio
-        bn = lambda c: _bn(c, bn_momentum, bn_epsilon, device)  # noqa: E731
+        bn = lambda c: _bn(c, bn_momentum, bn_epsilon,  # noqa: E731
+                           device, compute_dtype)
         if ba.expand_ratio != 1:
-            self._expand_conv = nn.Conv2d(inp, oup, 1, bias=False,
-                                          device=device)
+            self._expand_conv = Conv2d(inp, oup, 1, bias=False,
+                                       device=device)
             self._bn0 = bn(oup)
         self._depthwise_conv = Conv2dSame(
             oup, oup, ba.kernel_size, stride=ba.stride, groups=oup,
@@ -194,10 +214,10 @@ class MBConvBlock(nn.Module):
         if self.has_se:
             # squeezed from the block's INPUT filters, as the reference does
             squeezed = max(1, int(inp * ba.se_ratio))
-            self._se_reduce = nn.Conv2d(oup, squeezed, 1, device=device)
-            self._se_expand = nn.Conv2d(squeezed, oup, 1, device=device)
-        self._project_conv = nn.Conv2d(oup, ba.output_filters, 1, bias=False,
-                                       device=device)
+            self._se_reduce = Conv2d(oup, squeezed, 1, device=device)
+            self._se_expand = Conv2d(squeezed, oup, 1, device=device)
+        self._project_conv = Conv2d(oup, ba.output_filters, 1, bias=False,
+                                    device=device)
         self._bn2 = bn(ba.output_filters)
 
     def forward(self, x: torch.Tensor, drop_connect_rate: float = 0.0,
@@ -205,16 +225,18 @@ class MBConvBlock(nn.Module):
         ba = self.block_args
         inputs = x
         if ba.expand_ratio != 1:
-            x = F.silu(self._bn0(self._expand_conv(x)))
-        x = F.silu(self._bn1(self._depthwise_conv(x)))
+            x = silu(self._bn0(self._expand_conv(x)))
+        x = self._bn1(self._depthwise_conv(x))
         if self.has_se:
-            # spatial mean → 1×1 convs applied to the (B, C) vector as dense layers
-            se = global_avg_pool(x)
-            se = F.silu(F.linear(se, self._se_reduce.weight.flatten(1),
-                                 self._se_reduce.bias))
-            se = F.linear(se, self._se_expand.weight.flatten(1),
-                          self._se_expand.bias)
-            x = torch.sigmoid(se)[:, :, None, None] * x
+            # spatial mean of silu(x) → 1×1 convs applied to the (B, C)
+            # vector as dense layers → gate on silu(x)
+            se = silu(_dense(silu_mean(x), self._se_reduce.weight.flatten(1),
+                             self._se_reduce.bias))
+            se = _dense(se, self._se_expand.weight.flatten(1),
+                        self._se_expand.bias)
+            x = sigmoid(se)[:, :, None, None] * silu(x)
+        else:
+            x = silu(x)
         x = self._bn2(self._project_conv(x))
         if (ba.id_skip and ba.stride == 1
                 and ba.input_filters == ba.output_filters):
@@ -230,9 +252,11 @@ class EfficientNet(nn.Module):
 
     def __init__(self, model_name: str = "efficientnet-b0",
                  num_classes: int = 1000, dropout_rate: Optional[float] = None,
-                 drop_connect_rate: Optional[float] = None, device=None,
+                 drop_connect_rate: Optional[float] = None,
+                 compute_dtype: torch.dtype = torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         overrides = {}
         if dropout_rate is not None:
             overrides["dropout_rate"] = dropout_rate
@@ -244,7 +268,7 @@ class EfficientNet(nn.Module):
         self.drop_connect_rate = gp.drop_connect_rate
         self.dropout_rate = gp.dropout_rate
         bn = lambda c: _bn(c, gp.batch_norm_momentum,  # noqa: E731
-                           gp.batch_norm_epsilon, device)
+                           gp.batch_norm_epsilon, device, compute_dtype)
 
         stem = round_filters(32, gp)
         self._conv_stem = Conv2dSame(1, stem, 3, stride=2,
@@ -264,26 +288,28 @@ class EfficientNet(nn.Module):
             for _ in range(repeats):
                 blocks.append(MBConvBlock(ba, gp.batch_norm_momentum,
                                           gp.batch_norm_epsilon,
-                                          device=device))
+                                          device=device,
+                                          compute_dtype=compute_dtype))
                 ba = ba.replace(input_filters=ba.output_filters, stride=1)
         self._blocks = nn.ModuleList(blocks)
 
         head = round_filters(1280, gp)
-        self._conv_head = nn.Conv2d(blocks[-1].block_args.output_filters,
-                                    head, 1, bias=False, device=device)
+        self._conv_head = Conv2d(blocks[-1].block_args.output_filters,
+                                 head, 1, bias=False, device=device)
         self._bn1 = bn(head)
         self._fc = nn.Linear(head, num_classes, device=device)
         lecun_normal_init_(self, generator)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2).contiguous()  # NHWC → NCHW, once
-        x = F.silu(self._bn0(self._conv_stem(x)))
+        # NHWC → NCHW and to the compute dtype, once
+        x = x.permute(0, 3, 1, 2).contiguous().to(self.compute_dtype)
+        x = silu(self._bn0(self._conv_stem(x)))
         n = len(self._blocks)
         for idx, block in enumerate(self._blocks):
             # linearly scaled stochastic depth (reference model.py:262-264)
             x = block(x, self.drop_connect_rate * idx / n, generator)
-        x = global_avg_pool(F.silu(self._bn1(self._conv_head(x))))
+        x = silu_mean(self._bn1(self._conv_head(x)))
         if self.training and self.dropout_rate:
             x = dropout(x, self.dropout_rate, generator)
-        return self._fc(x)
+        return _dense(x, self._fc.weight, self._fc.bias)

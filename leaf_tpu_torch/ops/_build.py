@@ -27,9 +27,11 @@ __all__ = ["load_library", "BUILD_DIR", "SOURCES"]
 
 _HERE = Path(__file__).resolve().parent
 # library name → source: the forward kernels (primal and residual-saving)
-# and the backward kernel
+# and the backward kernel, in f32 (3×TF32) and in bf16
 SOURCES = {"fwd": _HERE / "csrc" / "fused_frontend.cu",
-           "bwd": _HERE / "csrc" / "fused_frontend_bwd.cu"}
+           "bwd": _HERE / "csrc" / "fused_frontend_bwd.cu",
+           "fwd_bf16": _HERE / "csrc" / "fused_frontend_bf16.cu",
+           "bwd_bf16": _HERE / "csrc" / "fused_frontend_bwd_bf16.cu"}
 BUILD_DIR = _HERE / "build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -39,6 +41,9 @@ _SIGNATURES = {
     "fwd": {"leaf_fused_fwd_f32": [_PTR] * 4 + [_INT] * 4 + [_PTR],
             "leaf_fused_fwd_save_f32": [_PTR] * 5 + [_INT] * 4 + [_PTR]},
     "bwd": {"leaf_fused_bwd_f32": [_PTR] * 6 + [_INT] * 5 + [_PTR]},
+    "fwd_bf16": {"leaf_fused_fwd_bf16": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+                 "leaf_fused_fwd_save_bf16": [_PTR] * 5 + [_INT] * 4 + [_PTR]},
+    "bwd_bf16": {"leaf_fused_bwd_bf16": [_PTR] * 6 + [_INT] * 5 + [_PTR]},
 }
 
 

@@ -6,9 +6,9 @@ bias) for the LEAF geometry: 401 taps, stride 160, TF-SAME padding
 (200, 200). It is differentiable in the bank and the windows; the
 waveform gradient is zero, as the JAX op's custom VJP defines it.
 
-Three hand-written CUDA kernels carry it on the card, each beside its
-plain PyTorch version (which a CPU tensor runs, and which the tests and
-``chip_smoke.py`` hold the kernel against):
+Three hand-written CUDA kernels carry it on the card for each operand
+type, each beside its plain PyTorch version (which a CPU tensor runs, and
+which the tests and ``chip_smoke.py`` hold the kernel against):
 
 - ``fused_forward_cuda`` (``csrc/fused_frontend.cu``, primal) ↔
   ``fused_reference``: the forward when no gradient is wanted. Replaces
@@ -28,8 +28,18 @@ times over on the tensor cores (3×TF32 ``wgmma``, which keeps f32
 accuracy); the forwards run the conv as an implicit GEMM with the bank
 held in shared memory (the sources' headers say what the designs do
 about it; ``csrc/hopper_tf32.cuh`` holds the PTX helpers both share).
-There is no fallback between kernel and plain version: a CUDA tensor the
-kernels cannot take raises.
+
+bf16 compute (the JAX package's ``compute_dtype=bfloat16``): x and the
+bank in bf16, the windows in f32. The ``*_bf16_cuda`` wrappers launch
+``csrc/fused_frontend_bf16.cu`` / ``csrc/fused_frontend_bwd_bf16.cu``
+(one bf16 ``wgmma`` per k-step, f32 sums), and the plain versions follow
+the JAX op's rounding points: bf16 products with f32 sums, S and out in
+f32, OUT saved in bf16; in the backward dY, the windows of dS, S for
+d_windows and dOUT rounded to bf16, d_bank returned in bf16 and
+d_windows in f32. Any other mix of dtypes raises.
+
+There is no fallback between kernel and plain version, nor between the
+bf16 and the f32 kernels: a CUDA tensor the kernels cannot take raises.
 """
 
 from __future__ import annotations
@@ -45,7 +55,10 @@ from leaf_tpu_torch.frontend.pooling import depthwise_strided_conv
 __all__ = ["fused_gabor_sqmod_lowpass", "fused_reference",
            "fused_forward_saving_reference", "fused_backward_reference",
            "fused_forward_cuda", "fused_forward_saving_cuda",
-           "fused_backward_cuda", "lowpass_frames_out", "check_geometry"]
+           "fused_backward_cuda", "fused_forward_bf16_cuda",
+           "fused_forward_saving_bf16_cuda", "fused_backward_bf16_cuda",
+           "KERNELS", "launch_counts", "reset_launch_counts",
+           "lowpass_frames_out", "check_geometry"]
 
 _KMAX = 401
 _STRIDE = 160
@@ -73,10 +86,36 @@ def check_geometry(gabor: torch.Tensor, stride: int, pad) -> None:
 
 # ------------------------------------------------------- plain versions
 
+def _is_bf16(low: dict, high: dict) -> bool:
+    """True for the bf16 operand set, False for f32; raises on any other.
+
+    f32: every operand float32. bf16: the ``low`` operands (x and the bank,
+    or x and OUT) bfloat16 and the ``high`` ones (the windows, dY) float32,
+    as the JAX op runs under ``compute_dtype=bfloat16``.
+    """
+    lo = {t.dtype for t in low.values()}
+    hi = {t.dtype for t in high.values()}
+    if lo | hi == {torch.float32}:
+        return False
+    if lo == {torch.bfloat16} and hi == {torch.float32}:
+        return True
+    got = ", ".join(f"{k} {str(t.dtype).removeprefix('torch.')}"
+                    for k, t in {**low, **high}.items())
+    raise TypeError(f"{got}: the op takes float32 throughout, or "
+                    f"{' and '.join(low)} bfloat16 with {' and '.join(high)} "
+                    "float32")
+
+
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
 def _conv(x: torch.Tensor, gabor: torch.Tensor,
           pad: Tuple[int, int]) -> torch.Tensor:
-    """(B, T) waveform → (B, 2F, T) stride-1 conv outputs [re | im]."""
-    return F.conv1d(F.pad(x[:, None, :], pad), gabor.T[:, None, :])
+    """(B, T) waveform → (B, 2F, T) stride-1 conv outputs [re | im], f32
+    sums (bf16 operands are upcast: their products are exact in f32)."""
+    return F.conv1d(F.pad(x.float()[:, None, :], pad),
+                    gabor.float().T[:, None, :])
 
 
 def _sqmod_lowpass(conv: torch.Tensor, windows: torch.Tensor, stride: int,
@@ -89,7 +128,9 @@ def _sqmod_lowpass(conv: torch.Tensor, windows: torch.Tensor, stride: int,
 def fused_reference(x: torch.Tensor, gabor: torch.Tensor,
                     windows: torch.Tensor, stride: int = _STRIDE,
                     pad: Tuple[int, int] = _PAD) -> torch.Tensor:
-    """Plain version: (B, T) → conv1d → |·|² → depthwise strided conv."""
+    """Plain version: (B, T) → conv1d → |·|² → depthwise strided conv.
+    Under bf16 operands S and out stay f32, as in the JAX op."""
+    _is_bf16({"x": x, "gabor": gabor}, {"windows": windows})
     return _sqmod_lowpass(_conv(x, gabor, pad), windows, stride, pad)
 
 
@@ -97,9 +138,11 @@ def fused_forward_saving_reference(x: torch.Tensor, gabor: torch.Tensor,
                                    windows: torch.Tensor
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the residual-saving forward: (out, OUT), with OUT
-    the (B, 2F, T) conv outputs [re | im] the backward reads."""
+    the (B, 2F, T) conv outputs [re | im] the backward reads, at x's dtype
+    (out is formed from the f32 sums before OUT is rounded)."""
+    _is_bf16({"x": x, "gabor": gabor}, {"windows": windows})
     conv = _conv(x, gabor, _PAD)
-    return _sqmod_lowpass(conv, windows, _STRIDE, _PAD), conv
+    return _sqmod_lowpass(conv, windows, _STRIDE, _PAD), conv.to(x.dtype)
 
 
 def fused_backward_reference(x: torch.Tensor, conv: torch.Tensor,
@@ -115,36 +158,49 @@ def fused_backward_reference(x: torch.Tensor, conv: torch.Tensor,
       d_win[c,k]    = Σ_{b,f} dY[b,f,c]·S_pad[b,c,160f+k]   (conv1d_weight)
       dOUT          = 2·OUT·dS
       d_bank[j,col] = Σ_{b,t} xpad[b,t+j]·dOUT[b,col,t]     (conv1d_weight)
+
+    Under bf16 operands (OUT bf16) the sums stay f32 and the JAX op's
+    rounding points are kept: dY, the windows of dS, S for d_win and dOUT
+    are rounded to bf16, and d_bank is returned in bf16 (d_win in f32).
     """
+    lowp = _is_bf16({"x": x, "conv": conv},
+                    {"windows": windows, "d_out": d_out})
+    rnd = _bf16_round if lowp else (lambda t: t)
     f = windows.shape[0]
     t = x.shape[1]
-    s_pad = F.pad(conv[:, :f] ** 2 + conv[:, f:] ** 2, _PAD)       # (B, F, T+400)
-    dy = d_out.transpose(1, 2)                                      # (B, F, n_frames)
+    conv = conv.float()
+    s = conv[:, :f] ** 2 + conv[:, f:] ** 2                         # (B, F, T)
+    dy = rnd(d_out).transpose(1, 2)                                 # (B, F, n_frames)
     w = windows[:, None, :]                                         # (F, 1, 401)
-    d_s = nn_grad.conv1d_input(s_pad.shape, w, dy, stride=_STRIDE,
-                               groups=f)[..., _PAD[0]:_PAD[0] + t]
-    d_windows = nn_grad.conv1d_weight(s_pad, w.shape, dy, stride=_STRIDE,
-                                      groups=f)[:, 0]
-    d_conv = 2.0 * conv * torch.cat([d_s, d_s], dim=1)
-    d_bank = nn_grad.conv1d_weight(F.pad(x[:, None, :], _PAD),
+    d_s = nn_grad.conv1d_input((s.shape[0], f, t + sum(_PAD)), rnd(w), dy,
+                               stride=_STRIDE, groups=f)[..., _PAD[0]:_PAD[0] + t]
+    d_windows = nn_grad.conv1d_weight(F.pad(rnd(s), _PAD), w.shape, dy,
+                                      stride=_STRIDE, groups=f)[:, 0]
+    d_conv = rnd(2.0 * conv * torch.cat([d_s, d_s], dim=1))
+    d_bank = nn_grad.conv1d_weight(F.pad(x.float()[:, None, :], _PAD),
                                    (2 * f, 1, _KMAX), d_conv)[:, 0].T
-    return d_bank, d_windows
+    return d_bank.to(x.dtype), d_windows
 
 
 # ------------------------------------------------------------- kernels
 
-def _check_operands(**tensors: torch.Tensor) -> torch.device:
-    """Every operand a contiguous float32 tensor on one CUDA device."""
+def _check_operands(bf16: bool, low: dict, high: dict) -> torch.device:
+    """Every operand contiguous on one CUDA device, of the f32 set (``bf16``
+    False) or of the bf16 set (see ``_is_bf16``)."""
+    tensors = {**low, **high}
     dev = next(iter(tensors.values())).device
     for name, t in tensors.items():
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the kernel needs all "
                              f"operands on one CUDA device ({dev})")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32 "
-                            "only (bf16 input is not ported yet)")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if _is_bf16(low, high) != bf16:
+        raise TypeError(
+            "this kernel takes " + ("bf16 x" if bf16 else "float32")
+            + " operands; " + ("float32 operands go to the f32 kernels"
+                               if bf16 else "bf16 operands go to the "
+                               "*_bf16_cuda kernels"))
     return dev
 
 
@@ -167,30 +223,29 @@ def _raise_on_error(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def _launch_forward(x, gabor, windows, save: bool):
+def _launch_forward(x, gabor, windows, save: bool, bf16: bool):
+    """Run the primal or saving forward kernel of the f32 or the bf16
+    source: (out,) or (out, OUT), OUT at x's dtype."""
     from leaf_tpu_torch.ops._build import load_library
 
-    dev = _check_operands(x=x, gabor=gabor, windows=windows)
+    dev = _check_operands(bf16, {"x": x, "gabor": gabor}, {"windows": windows})
     if gabor.ndim != 2 or gabor.shape[0] != _KMAX or gabor.shape[1] % 2:
         raise ValueError(f"gabor must be (401, 2F), got {tuple(gabor.shape)}")
     f = gabor.shape[1] // 2
     b, t_len, n_frames = _check_shapes(x, f, windows)
-    out = torch.empty((b, n_frames, f), device=dev, dtype=torch.float32)
-    lib = load_library()
+    res = [torch.empty((b, n_frames, f), device=dev, dtype=torch.float32)]
+    if save:
+        res.append(torch.empty((b, 2 * f, t_len), device=dev, dtype=x.dtype))
+    kernel = getattr(load_library(), "fused_fwd" + ("_save" if save else "")
+                     + ("_bf16" if bf16 else "_f32"))
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if not save:
-            _raise_on_error(lib.fused_fwd_f32(
-                x.data_ptr(), gabor.data_ptr(), windows.data_ptr(),
-                out.data_ptr(), b, t_len, f, n_frames, stream),
-                "fused frontend forward")
-            return out
-        conv = torch.empty((b, 2 * f, t_len), device=dev, dtype=torch.float32)
-        _raise_on_error(lib.fused_fwd_save_f32(
+        _raise_on_error(kernel(
             x.data_ptr(), gabor.data_ptr(), windows.data_ptr(),
-            out.data_ptr(), conv.data_ptr(), b, t_len, f, n_frames, stream),
-            "fused frontend residual-saving forward")
-    return out, conv
+            *(r.data_ptr() for r in res), b, t_len, f, n_frames,
+            torch.cuda.current_stream(dev).cuda_stream),
+            "fused frontend " + ("residual-saving " if save else "")
+            + "forward" + (" (bf16)" if bf16 else ""))
+    return tuple(res)
 
 
 def fused_forward_cuda(x: torch.Tensor, gabor: torch.Tensor,
@@ -200,7 +255,7 @@ def fused_forward_cuda(x: torch.Tensor, gabor: torch.Tensor,
     x (B, T), gabor (401, 2F), windows (F, 401): contiguous float32 on one
     CUDA device. Returns (B, n_frames, F) float32.
     """
-    out = _launch_forward(x, gabor, windows, save=False)
+    out, = _launch_forward(x, gabor, windows, save=False, bf16=False)
     fused_forward_cuda.launches += 1
     return out
 
@@ -213,25 +268,39 @@ def fused_forward_saving_cuda(x: torch.Tensor, gabor: torch.Tensor,
     Operands as ``fused_forward_cuda``. Returns (out (B, n_frames, F),
     OUT (B, 2F, T)) float32; every OUT position is written once.
     """
-    res = _launch_forward(x, gabor, windows, save=True)
+    res = _launch_forward(x, gabor, windows, save=True, bf16=False)
     fused_forward_saving_cuda.launches += 1
     return res
 
 
-def fused_backward_cuda(x: torch.Tensor, conv: torch.Tensor,
-                        windows: torch.Tensor, d_out: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel; ``.launches`` counts launches.
+def fused_forward_bf16_cuda(x: torch.Tensor, gabor: torch.Tensor,
+                            windows: torch.Tensor) -> torch.Tensor:
+    """Launch the bf16 primal forward kernel; ``.launches`` counts.
 
-    x (B, T), conv = OUT (B, 2F, T) from ``fused_forward_saving_cuda``,
-    windows (F, 401), d_out (B, n_frames, F): contiguous float32 on one
-    CUDA device. The kernel (tensor cores, 3×TF32) writes one partial
-    sum per block; one fixed-order ``sum`` over the block axis gives
-    (d_bank (401, 2F), d_windows (F, 401)), the same on every launch.
+    x (B, T) and gabor (401, 2F) bfloat16, windows (F, 401) float32,
+    contiguous on one CUDA device. Returns (B, n_frames, F) float32.
     """
+    out, = _launch_forward(x, gabor, windows, save=False, bf16=True)
+    fused_forward_bf16_cuda.launches += 1
+    return out
+
+
+def fused_forward_saving_bf16_cuda(x: torch.Tensor, gabor: torch.Tensor,
+                                   windows: torch.Tensor
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the bf16 residual-saving forward kernel; ``.launches``
+    counts. Operands as ``fused_forward_bf16_cuda``. Returns (out
+    (B, n_frames, F) float32, OUT (B, 2F, T) bfloat16)."""
+    res = _launch_forward(x, gabor, windows, save=True, bf16=True)
+    fused_forward_saving_bf16_cuda.launches += 1
+    return res
+
+
+def _launch_backward(x, conv, windows, d_out, bf16: bool):
     from leaf_tpu_torch.ops._build import load_library
 
-    dev = _check_operands(x=x, conv=conv, windows=windows, d_out=d_out)
+    dev = _check_operands(bf16, {"x": x, "conv": conv},
+                          {"windows": windows, "d_out": d_out})
     f = windows.shape[0]
     b, t_len, n_frames = _check_shapes(x, f, windows)
     if tuple(conv.shape) != (b, 2 * f, t_len):
@@ -252,36 +321,87 @@ def fused_backward_cuda(x: torch.Tensor, conv: torch.Tensor,
                         device=dev, dtype=torch.float32)
     dwin = torch.empty((groups, n_blocks, _BWD_CHANS, _KMAX), device=dev,
                        dtype=torch.float32)
-    lib = load_library()
+    kernel = getattr(load_library(),
+                     "fused_bwd_bf16" if bf16 else "fused_bwd_f32")
     with torch.cuda.device(dev):
-        _raise_on_error(lib.fused_bwd_f32(
+        _raise_on_error(kernel(
             x.data_ptr(), conv.data_ptr(), windows.data_ptr(),
             d_out.data_ptr(), dbank.data_ptr(), dwin.data_ptr(), b, t_len, f,
             n_frames, n_blocks, torch.cuda.current_stream(dev).cuda_stream),
-            "fused frontend backward")
-    fused_backward_cuda.launches += 1
+            "fused frontend backward" + (" (bf16)" if bf16 else ""))
     dbank = dbank.sum(1)                                   # (G, 401, 80)
     cols = [dbank[..., h * _BWD_CHANS:(h + 1) * _BWD_CHANS].transpose(0, 1)
             .reshape(_KMAX, groups * _BWD_CHANS)[:, :f] for h in (0, 1)]
     d_windows = dwin.sum(1).reshape(groups * _BWD_CHANS, _KMAX)[:f]
-    return torch.cat(cols, dim=1), d_windows
+    return torch.cat(cols, dim=1).to(x.dtype), d_windows
 
 
-fused_forward_cuda.launches = 0
-fused_forward_saving_cuda.launches = 0
-fused_backward_cuda.launches = 0
+def fused_backward_cuda(x: torch.Tensor, conv: torch.Tensor,
+                        windows: torch.Tensor, d_out: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel; ``.launches`` counts launches.
+
+    x (B, T), conv = OUT (B, 2F, T) from ``fused_forward_saving_cuda``,
+    windows (F, 401), d_out (B, n_frames, F): contiguous float32 on one
+    CUDA device. The kernel (tensor cores, 3×TF32) writes one partial
+    sum per block; one fixed-order ``sum`` over the block axis gives
+    (d_bank (401, 2F), d_windows (F, 401)), the same on every launch.
+    """
+    res = _launch_backward(x, conv, windows, d_out, bf16=False)
+    fused_backward_cuda.launches += 1
+    return res
+
+
+def fused_backward_bf16_cuda(x: torch.Tensor, conv: torch.Tensor,
+                             windows: torch.Tensor, d_out: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the bf16 backward kernel; ``.launches`` counts launches.
+
+    x (B, T) and conv = OUT (B, 2F, T) bfloat16 (from
+    ``fused_forward_saving_bf16_cuda``), windows (F, 401) and d_out
+    (B, n_frames, F) float32. The f32 partial sums are reduced as in
+    ``fused_backward_cuda`` and d_bank is rounded to bf16 once, at the
+    end: (d_bank (401, 2F) bfloat16, d_windows (F, 401) float32).
+    """
+    res = _launch_backward(x, conv, windows, d_out, bf16=True)
+    fused_backward_bf16_cuda.launches += 1
+    return res
+
+
+# The kernel wrappers by the short names the CLIs' epoch line prints.
+KERNELS = {"fwd": fused_forward_cuda, "fwd_save": fused_forward_saving_cuda,
+           "bwd": fused_backward_cuda, "fwd_bf16": fused_forward_bf16_cuda,
+           "fwd_save_bf16": fused_forward_saving_bf16_cuda,
+           "bwd_bf16": fused_backward_bf16_cuda}
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since the process started (or the last
+    ``reset_launch_counts``), by short name."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+reset_launch_counts()
 
 
 class _FusedForward(torch.autograd.Function):
     """The op under autograd: the residual-saving forward, then the
-    backward, as kernels on a CUDA tensor and plain versions on a CPU one.
-    The waveform gradient is zero, not absent (the JAX op's contract)."""
+    backward, as kernels on a CUDA tensor (the bf16 ones for bf16
+    operands) and plain versions on a CPU one. The waveform gradient is
+    zero, not absent (the JAX op's contract)."""
 
     @staticmethod
     def forward(ctx, x, gabor, windows):
         if x.is_cuda:
             x, gabor, windows = (t.contiguous() for t in (x, gabor, windows))
-            out, conv = fused_forward_saving_cuda(x, gabor, windows)
+            fwd = (fused_forward_saving_bf16_cuda
+                   if x.dtype == torch.bfloat16 else fused_forward_saving_cuda)
+            out, conv = fwd(x, gabor, windows)
         else:
             out, conv = fused_forward_saving_reference(x, gabor, windows)
         ctx.save_for_backward(x, conv, windows)
@@ -295,8 +415,9 @@ class _FusedForward(torch.autograd.Function):
         if not (need_bank or need_win):
             return d_x, None, None
         if d_out.is_cuda:
-            d_bank, d_win = fused_backward_cuda(x, conv, windows,
-                                                d_out.contiguous())
+            bwd = (fused_backward_bf16_cuda if x.dtype == torch.bfloat16
+                   else fused_backward_cuda)
+            d_bank, d_win = bwd(x, conv, windows, d_out.contiguous())
         else:
             d_bank, d_win = fused_backward_reference(x, conv, windows, d_out)
         return (d_x, d_bank if need_bank else None,
@@ -309,9 +430,9 @@ def fused_gabor_sqmod_lowpass(x: torch.Tensor, gabor: torch.Tensor,
     """LEAF hot path, fused: waveform → lowpass-pooled energies.
 
     Args:
-      x: (B, T) waveform; its gradient is zero.
-      gabor: (K=401, 2F) [real | imag] Gabor filter bank.
-      windows: (F, K) per-channel lowpass windows.
+      x: (B, T) waveform, float32 or bfloat16; its gradient is zero.
+      gabor: (K=401, 2F) [real | imag] Gabor filter bank, x's dtype.
+      windows: (F, K) per-channel lowpass windows, float32.
       stride/pad: must be 160 and (200, 200) (see ``check_geometry``).
 
     Returns (B, n_frames, F) float32, n_frames = (T+pl+pr−K)//stride + 1.
@@ -323,6 +444,7 @@ def fused_gabor_sqmod_lowpass(x: torch.Tensor, gabor: torch.Tensor,
                                     or windows.requires_grad):
         return _FusedForward.apply(x, gabor, windows)
     if x.is_cuda:
-        return fused_forward_cuda(x.contiguous(), gabor.contiguous(),
-                                  windows.contiguous())
+        fwd = (fused_forward_bf16_cuda if x.dtype == torch.bfloat16
+               else fused_forward_cuda)
+        return fwd(x.contiguous(), gabor.contiguous(), windows.contiguous())
     return fused_reference(x, gabor, windows)

@@ -64,7 +64,8 @@ class ServingModel:
         return self.batch_sizes[-1]
 
     def __call__(self, waveforms) -> np.ndarray:
-        """(B, clip_samples) float32 → (B, num_classes) logits."""
+        """(B, clip_samples) float32 → (B, num_classes) float32 logits
+        (a bf16 model's logits widened: numpy has no bf16)."""
         x = torch.as_tensor(np.asarray(waveforms, dtype=np.float32))
         if x.ndim != 2 or x.shape[1] != self.clip_samples:
             raise ValueError(f"expected (B, {self.clip_samples}) waveforms, "
@@ -79,5 +80,5 @@ class ServingModel:
                 if take < b:
                     chunk = torch.nn.functional.pad(chunk, (0, 0, 0, b - take))
                 logits = self.model(chunk.to(self.device, non_blocking=True))
-                outs.append(logits[:take].cpu().numpy())
+                outs.append(logits[:take].float().cpu().numpy())
         return np.concatenate(outs, axis=0)

@@ -20,9 +20,13 @@ are read once per epoch. Kept as in the JAX ``train.py``:
   clock rewound to the epoch start and meta epoch e−1, exit 0.
 
 The epoch line ends with the fused frontend kernels' launch counts since
-the process started (``kernels {"fwd": .., "fwd_save": .., "bwd": ..}``:
-the primal forward, the residual-saving forward and the backward), so a
-run shows that its steps went through the kernels. Its ex/s is the
+the process started (``kernels {"fwd": .., "fwd_save": .., "bwd": ..,
+"fwd_bf16": .., "fwd_save_bf16": .., "bwd_bf16": ..}``: the primal
+forward, the residual-saving forward and the backward, in f32 and in
+bf16), so a run shows that its steps went through the kernels.
+``--bf16`` sets ``compute_dtype: bfloat16`` in the cfg's ``frontend`` and
+``model`` sections (saved so in ``hparams.json``), as the JAX
+``train.py`` does: bf16 compute with f32 parameters. Its ex/s is the
 train loop's alone (read before validation), where the JAX CLI's
 includes validation.
 
@@ -52,6 +56,7 @@ from leaf_tpu_torch.data import transforms as T
 from leaf_tpu_torch.data.device_augment import (leaf_device_augment,
                                                 peak_normalize)
 from leaf_tpu_torch.models import Classifier
+from leaf_tpu_torch.ops.fused_frontend import launch_counts
 from leaf_tpu_torch.training import (TrainState, get_config, make_eval_step,
                                      make_train_step, optimization_helper,
                                      pad_batch_to_multiple, rewind_steps,
@@ -123,7 +128,8 @@ def parse_args(argv=None):
                         "bit-identical for 16-bit sources); 'auto' picks "
                         "int16 whenever the host pipeline is "
                         "scale-equivariant (crop/pad only)")
-    p.add_argument("--bf16", action="store_true", help="not ported yet")
+    p.add_argument("--bf16", action="store_true",
+                   help="run the model in bfloat16 compute (fp32 params)")
     p.add_argument("--steps_per_call", type=int, default=1,
                    help="values above 1 are not ported yet")
     p.add_argument("--bn_recalibrate", type=int, default=0, metavar="N",
@@ -143,7 +149,6 @@ def _refuse_unported(args, cfg) -> None:
     """Flags whose modules are later slices raise here, naming the
     ROADMAP item (Queue 1) that ports them."""
     unported = [
-        (args.bf16, "--bf16", "item 5 (bf16 compute)"),
         (args.steps_per_call > 1, "--steps_per_call > 1",
          "item 6 (multistep)"),
         (args.watch_model, "--wandb_watch_model", "item 6 (watching)"),
@@ -166,20 +171,17 @@ def _refuse_unported(args, cfg) -> None:
                 f"Queue 1 {item}")
 
 
-def kernel_launches() -> dict:
-    """The fused frontend kernels' launch counters (process-wide)."""
-    from leaf_tpu_torch.ops import fused_frontend as ff
-    return {"fwd": ff.fused_forward_cuda.launches,
-            "fwd_save": ff.fused_forward_saving_cuda.launches,
-            "bwd": ff.fused_backward_cuda.launches}
-
-
 def train(args) -> float:
     device = resolve_device(args.device)
     np.random.seed(args.random_seed)
     random.seed(args.random_seed)
     cfg = get_config(args.cfg_file)
     _refuse_unported(args, cfg)
+    if args.bf16:
+        # frontend + backbone compute in bfloat16 (f32 params, PCEN and
+        # contraction sums), saved so in hparams.json for evaluate
+        cfg["frontend"]["compute_dtype"] = "bfloat16"
+        cfg["model"]["compute_dtype"] = "bfloat16"
     mode = cfg["model"]["type"]
     multiclass = mode == "multiclass"
     ac = cfg["audio_config"]
@@ -430,7 +432,7 @@ def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
             f"epoch {epoch}: tr_loss {tr_loss:.4f} tr_acc {tr_acc:.4f} "
             f"val_loss {val_loss:.4f} {metric_name} {val_metric:.4f} "
             f"({dt:.1f}s, {train_rate:.1f} ex/s) "
-            f"kernels {json.dumps(kernel_launches())}")
+            f"kernels {json.dumps(launch_counts())}")
         logger.log_scalars(
             {"train/loss": tr_loss, "train/acc": tr_acc,
              "val/loss": val_loss, f"val/{metric_name}": val_metric,

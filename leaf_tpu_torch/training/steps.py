@@ -11,6 +11,12 @@ step); a driver reads them once per epoch.
 Randomness (augment, mixup, dropout, drop-connect) comes from one
 ``torch.Generator`` on the batch's device passed to each call; it gives
 other numbers than the JAX package's ``jax.random`` keys.
+
+Under ``compute_dtype=bfloat16`` the logits are bf16 and the losses are
+formed as optax forms them: the softmax cross-entropy per example in
+bf16 (logsumexp minus the label's logit), its mean summed in f32 and
+returned as bf16; the sigmoid BCE in the promoted dtype of logits and
+targets. The eval step's weighted loss and its outputs are f32.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ import torch.nn.functional as F
 
 from leaf_tpu_torch.training.state import TrainState
 
-__all__ = ["cross_entropy_loss", "bce_logits_loss", "mixup",
+__all__ = ["softmax_cross_entropy", "cross_entropy_loss", "bce_logits_loss",
+           "mixup",
            "make_train_step", "make_eval_step", "waveform_from_wire",
            "pad_batch_to_multiple"]
 
@@ -36,16 +43,32 @@ def waveform_from_wire(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Per-example softmax cross-entropy with integer labels at the
+    logits' dtype: logsumexp minus the label's logit, as
+    ``optax.softmax_cross_entropy_with_integer_labels`` forms it."""
+    return (torch.logsumexp(logits, dim=-1)
+            - logits.gather(-1, labels[:, None].long())[:, 0])
+
+
 def cross_entropy_loss(logits: torch.Tensor,
                        labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy with integer labels (CrossEntropyLoss)."""
-    return F.cross_entropy(logits, labels)
+    return softmax_cross_entropy(logits, labels).mean()
 
 
 def bce_logits_loss(logits: torch.Tensor,
                     targets: torch.Tensor) -> torch.Tensor:
-    """Mean sigmoid BCE over all elements (BCEWithLogitsLoss)."""
-    return F.binary_cross_entropy_with_logits(logits, targets)
+    """Mean sigmoid BCE over all elements (BCEWithLogitsLoss), in the
+    promoted dtype of logits and targets (optax's)."""
+    return _bce(logits, targets).mean()
+
+
+def _bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    dt = torch.promote_types(logits.dtype, targets.dtype)
+    return F.binary_cross_entropy_with_logits(
+        logits.to(dt), targets.to(dt), reduction="none")
 
 
 def mixup(generator: Optional[torch.Generator], inputs: torch.Tensor,
@@ -103,9 +126,9 @@ def make_train_step(model_type: str = "multiclass",
             xx, y_a, y_b, lam = mixup(generator, x, y, mixup_alpha,
                                       "multiclass")
             logits = model(xx, generator)
-            loss = torch.mean(
-                F.cross_entropy(logits, y_a, reduction="none") * lam
-                + F.cross_entropy(logits, y_b, reduction="none") * (1.0 - lam))
+            loss = torch.mean(softmax_cross_entropy(logits, y_a) * lam
+                              + softmax_cross_entropy(logits, y_b)
+                              * (1.0 - lam))
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.apply_gradients()
@@ -136,17 +159,17 @@ def make_eval_step(model_type: str = "multiclass") -> Callable:
         x = waveform_from_wire(x)
         logits = state.model.eval()(x)
         if multilabel:
-            per_example = F.binary_cross_entropy_with_logits(
-                logits, y, reduction="none").mean(dim=-1)
+            per_example = _bce(logits, y).mean(dim=-1)
             outputs = torch.sigmoid(logits).float()
             hits = torch.zeros(x.shape[0], device=x.device)
         else:
-            per_example = F.cross_entropy(logits, y, reduction="none")
+            per_example = softmax_cross_entropy(logits, y)
             outputs = logits.float()
             hits = (logits.argmax(-1) == y).float()
         if w is None:
             w = torch.ones(x.shape[0], device=x.device)
-        return {"loss": (per_example * w).sum() / w.sum().clamp_min(1.0),
+        return {"loss": (per_example.float() * w).sum()
+                / w.sum().clamp_min(1.0),
                 "correct": (hits * w).sum().to(torch.int32),
                 "count": w.sum().to(torch.int32),
                 "outputs": outputs}

@@ -147,8 +147,9 @@ def test_bn_recalibrate_runs_before_validation(trained_exp):
     assert np.isfinite(float(epoch_line.group(1)))
     assert 0.0 <= float(epoch_line.group(2)) <= 1.0
     # the CPU runs the kernels' plain versions: no kernel launched
-    assert json.loads(epoch_line.group(3)) == {"fwd": 0, "fwd_save": 0,
-                                               "bwd": 0}
+    assert json.loads(epoch_line.group(3)) == {
+        "fwd": 0, "fwd_save": 0, "bwd": 0, "fwd_bf16": 0,
+        "fwd_save_bf16": 0, "bwd_bf16": 0}
     assert json.loads((expdir / "hparams.json").read_text())["opt"][
         "lr"] == "1e-3"
     assert os.path.exists(expdir / "epoch_000" / "state.pt")
@@ -275,7 +276,7 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ("--bf16",), ("--steps_per_call", "2"), ("--wandb_watch_model",),
+    ("--steps_per_call", "2"), ("--wandb_watch_model",),
     ("--watch_histograms",), ("--use_packed_dataset",),
     ("--gcs_bucket_name", "b"), ("--n_devices", "2"), ("--multihost",)])
 def test_unported_flags_raise(flag, tmp_path):
@@ -284,6 +285,33 @@ def test_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         train.main(["--cfg_file", str(root / "cfg.cfg"), "--expdir",
                     str(tmp_path / "exp"), "--device", "cpu", *flag])
+
+
+def test_train_bf16_then_evaluate(tmp_path, capsys, few_threads):
+    # --bf16 saves compute_dtype bfloat16 in both cfg sections of
+    # hparams.json; evaluate builds the bf16 model from it and scores in f32
+    from leaf_tpu_torch import train
+    root = make_tiny_exp(tmp_path)
+    expdir = tmp_path / "exp"
+    assert train.main(["--cfg_file", str(root / "cfg.cfg"), "--expdir",
+                       str(expdir), "--epochs", "1", "--num_workers", "1",
+                       "--device", "cpu", "--bf16"]) == 0
+    out = capsys.readouterr().out
+    m = re.search(r"epoch 0: tr_loss (\S+) .* val_acc (\S+) ", out)
+    assert m and np.isfinite(float(m.group(1))), out[-2000:]
+    hp = json.loads((expdir / "hparams.json").read_text())
+    assert hp["frontend"]["compute_dtype"] == "bfloat16"
+    assert hp["model"]["compute_dtype"] == "bfloat16"
+    assert evaluate.main(_eval_args(root, expdir)) == 0
+    out = capsys.readouterr().out
+    assert ("compute dtype: frontend torch.bfloat16, model torch.bfloat16"
+            in out), out
+    header, row = (expdir / "results.txt").read_text().splitlines()
+    arch, acc, ckpt = row.split(",")
+    assert header == "model,acc,ckpt" and arch == "efficientnet"
+    assert ckpt == "epoch_000" and 0.0 <= float(acc) <= 1.0
+    hits = float(acc) * len(TEST_SECONDS)   # a whole number of clips
+    assert abs(hits - round(hits)) < 1e-9, acc
 
 
 @pytest.mark.parametrize("mode,flags", [

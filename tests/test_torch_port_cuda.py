@@ -8,6 +8,8 @@ imports JAX, hence on the card:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
+The bf16 kernels' tolerances stand above their tests.
+
 Tolerance, kernel vs plain version (TF32 off): |d| ≤ 1e-4·|ref| +
 1e-6·max|ref| for forward values — the kernels sum the 401-tap products
 on the tensor cores in 3×TF32 (~22 bits per product), the plain versions
@@ -120,8 +122,12 @@ def test_non_contiguous_input(cuda_device):
 
 def test_wrapper_refusals(cuda_device):
     x, gabor, windows = _operands(2, 16000, 40, cuda_device)
-    with pytest.raises(TypeError, match="float32"):
-        fused.fused_forward_cuda(x.bfloat16(), gabor, windows)
+    # the f32 kernels refuse the bf16 operand set, and the bf16 kernels
+    # the f32 one: no quiet cast between them
+    with pytest.raises(TypeError, match="_bf16_cuda"):
+        fused.fused_forward_cuda(x.bfloat16(), gabor.bfloat16(), windows)
+    with pytest.raises(TypeError, match="float32 operands go"):
+        fused.fused_forward_bf16_cuda(x, gabor, windows)
     with pytest.raises(ValueError, match="CUDA"):
         fused.fused_forward_cuda(x, gabor.cpu(), windows)
     with pytest.raises(ValueError, match="windows"):
@@ -222,6 +228,103 @@ def test_backward_wrapper_refusals(cuda_device):
         fused.fused_forward_saving_cuda(x.double(), gabor, windows)
 
 
+# ------------------------------------------------------------ bf16 kernels
+# Tolerances, bf16 kernel vs its plain bf16 version on the same operands:
+# out as the f32 kernels (the bf16 products are exact in f32, only the
+# order of the f32 sums differs); OUT within one bf16 ulp of the plain
+# OUT (both round f32 sums that may straddle a rounding point) plus
+# 1e-6·max|OUT|; d_bank (rounded to bf16 once, at the end) within one
+# ulp elementwise and 1e-3 of its norm (measured 1.5e-4 at B=256,
+# T=16000); d_windows (f32) as the f32 kernels' gradients.
+
+def _bf16_operands(b, t, f, device, seed=0):
+    x, gabor, windows = _operands(b, t, f, device, seed)
+    return x.bfloat16(), gabor.bfloat16(), windows
+
+
+def _bf16_ulp(ref):
+    """One bf16 ulp of each entry of ``ref``: 2^(e − 8) for |ref| in
+    [2^(e−1), 2^e)."""
+    _, e = torch.frexp(ref.float())
+    return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), e - 8)
+
+
+def _assert_within_ulp(got, ref, atol_rel):
+    got, ref = got.float(), ref.float()
+    bound = _bf16_ulp(ref) + atol_rel * ref.abs().max()
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    assert bool(((got - ref).abs() <= bound).all()), float(
+        ((got - ref).abs() / bound).max())
+
+
+BF16_EDGE = [(1, 1, 40), (3, 159, 3), (2, 1000, 20), (3, 1000, 21),
+             (2, 3041, 20), (3, 4037, 21), (7, 1000, 40), (2, 16000, 64),
+             (3, 12345, 24), (64, 16000, 40)]
+
+
+@pytest.mark.parametrize("b,t,f", BF16_EDGE)
+def test_bf16_kernels_match_plain(cuda_device, b, t, f):
+    x, gabor, windows = _bf16_operands(b, t, f, cuda_device)
+    counts = fused.launch_counts()
+    got = fused.fused_gabor_sqmod_lowpass(x, gabor, windows)
+    out, conv = fused.fused_forward_saving_bf16_cuda(x, gabor, windows)
+    torch.cuda.synchronize()
+    ref_out, ref_conv = fused.fused_forward_saving_reference(x, gabor, windows)
+    _assert_close(got, ref_out)
+    _assert_close(out, ref_out)
+    assert conv.dtype == torch.bfloat16
+    _assert_within_ulp(conv, ref_conv, 1e-6)
+    d_out = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device)
+    d_bank, d_win = fused.fused_backward_bf16_cuda(x, conv, windows, d_out)
+    again = fused.fused_backward_bf16_cuda(x, conv, windows, d_out)
+    ref_bank, ref_win = fused.fused_backward_reference(x, conv, windows,
+                                                       d_out)
+    assert d_bank.dtype == torch.bfloat16 and d_win.dtype == torch.float32
+    assert torch.equal(d_bank, again[0]) and torch.equal(d_win, again[1])
+    _assert_within_ulp(d_bank, ref_bank, 1e-4)
+    assert float((d_bank.float() - ref_bank.float()).norm()
+                 / ref_bank.float().norm()) <= 1e-3
+    _assert_grad_close(d_win, ref_win)
+    counts = {k: v - counts[k] for k, v in fused.launch_counts().items()}
+    assert counts == {"fwd": 0, "fwd_save": 0, "bwd": 0, "fwd_bf16": 1,
+                      "fwd_save_bf16": 1, "bwd_bf16": 2}
+
+
+def test_bf16_misaligned_waveform(cuda_device):
+    # T % 8 == 0, but x starts one bf16 element (2 bytes) past a 16-byte
+    # boundary: the kernels take the 2-byte copies
+    x, gabor, windows = _bf16_operands(3, 16000, 40, cuda_device)
+    flat = torch.empty(x.numel() + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    xs = flat[1:].view_as(x)
+    xs.copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 == 2
+    ref_out, ref_conv = fused.fused_forward_saving_reference(x, gabor, windows)
+    _assert_close(fused.fused_forward_bf16_cuda(xs, gabor, windows), ref_out)
+    out, conv = fused.fused_forward_saving_bf16_cuda(xs, gabor, windows)
+    _assert_close(out, ref_out)
+    _assert_within_ulp(conv, ref_conv, 1e-6)
+    d_out = torch.randn(out.shape, device=cuda_device)
+    d_bank, d_win = fused.fused_backward_bf16_cuda(xs, conv, windows, d_out)
+    ref_bank, ref_win = fused.fused_backward_reference(x, conv, windows,
+                                                       d_out)
+    _assert_within_ulp(d_bank, ref_bank, 1e-4)
+    _assert_grad_close(d_win, ref_win)
+
+
+def test_bf16_mixed_operands_raise(cuda_device):
+    x, gabor, windows = _bf16_operands(2, 16000, 40, cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused.fused_gabor_sqmod_lowpass(x, gabor.float(), windows)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused.fused_forward_bf16_cuda(x, gabor, windows.bfloat16())
+    _, conv = fused.fused_forward_saving_bf16_cuda(x, gabor, windows)
+    d_out = torch.zeros(2, 100, 40, device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused.fused_backward_bf16_cuda(x, conv.float(), windows, d_out)
+
+
 def test_train_step_on_card(cuda_device):
     from leaf_tpu_torch.data import leaf_device_augment
     from leaf_tpu_torch.models import Classifier
@@ -246,6 +349,24 @@ def test_train_step_on_card(cuda_device):
     assert (fused.fused_forward_saving_cuda.launches,
             fused.fused_backward_cuda.launches) == (counts[0] + 2,
                                                     counts[1] + 2)
+
+
+def test_train_cli_bf16_launches_the_bf16_kernels(cuda_device, tmp_path):
+    root = make_tiny_exp(tmp_path)
+    env = {**os.environ, "PYTHONPATH": REPO}
+    res = subprocess.run(
+        [sys.executable, "-u", "-m", "leaf_tpu_torch.train", "--cfg_file",
+         str(root / "cfg.cfg"), "--expdir", str(tmp_path / "exp"),
+         "--epochs", "1", "--num_workers", "2", "--bf16"],
+        capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    m = re.search(r"epoch 0: tr_loss (\S+) .* kernels (\{.*\})", res.stdout)
+    assert m and np.isfinite(float(m.group(1))), res.stdout[-2000:]
+    # 6 steps, each one bf16 saving forward and one bf16 backward; 2 eval
+    # batches, each one bf16 primal forward; no f32 fused launch
+    assert json.loads(m.group(2)) == {"fwd": 0, "fwd_save": 0, "bwd": 0,
+                                      "fwd_bf16": 2, "fwd_save_bf16": 6,
+                                      "bwd_bf16": 6}
 
 
 def test_leaf_auto_takes_the_kernel(cuda_device):
@@ -399,4 +520,6 @@ def test_train_cli_launches_the_kernels(cuda_device, tmp_path):
     assert m and np.isfinite(float(m.group(1))), res.stdout[-2000:]
     # 24 clips / B=4: 6 steps, each one saving forward and one backward;
     # 6 val clips: 2 eval batches, each one primal forward
-    assert json.loads(m.group(2)) == {"fwd": 2, "fwd_save": 6, "bwd": 6}
+    assert json.loads(m.group(2)) == {"fwd": 2, "fwd_save": 6, "bwd": 6,
+                                      "fwd_bf16": 0, "fwd_save_bf16": 0,
+                                      "bwd_bf16": 0}
