@@ -9,7 +9,9 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   ``leaf_tpu_torch/ops/csrc`` (one nvcc per source, together);
                   count the tensor-core instructions (HGMMA/HMMA) in each
                   library's SASS (``cuobjdump -sass``), and the bf16 HGMMAs
-                  in the bf16 libraries: none fails
+                  in the bf16 libraries: none fails; the bf16 forward's
+                  fresh build reports no spill and no wgmma serialization
+                  warning (C75xx), and its registers are logged
 2. parity       — primal forward kernel vs its plain PyTorch version,
                   B=256, F=40, T ∈ {16000, 12345, 48000}; two launches
                   bit-equal; the worst ratio of error to tolerance
@@ -188,6 +190,35 @@ def _sass_counts(path) -> dict:
     return counts
 
 
+def _check_fwd_bf16_build(build_log: str) -> None:
+    """The bf16 forward's ptxas report: its registers logged (its shared
+    memory is dynamic, the source's smem_bytes, so ptxas does not print
+    it); a spill or a wgmma serialization warning (C75xx "Potential
+    Performance Loss ... serialized") fails."""
+    section = re.search(r"^\[fused_frontend_bf16\.cu\]\n(.*?)(?=^\[|\Z)",
+                        build_log, re.S | re.M)
+    if section is None:
+        log("[build] fused_frontend_bf16.cu: an earlier build was reused, "
+            "its ptxas report is not in this run")
+        return
+    text = section.group(1)
+    for line in text.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] fwd_bf16 ptxas: {line.strip()}")
+    arrives = len(re.findall(r"\(C7519\)", text))
+    if arrives:
+        log(f"[build] fwd_bf16 ptxas: {arrives} warpgroup.arrive injected "
+            "(C7519, not a serialization)")
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                         text)]
+    serialized = sorted(set(re.findall(r"\((C75\d\d)\)[^\n]*serialized", text))
+                        | set(re.findall(r"C7513", text)))
+    if not spills or any(spills) or serialized:
+        raise AssertionError(
+            f"fused_frontend_bf16.cu: spills {spills}, wgmma serialization "
+            f"warnings {serialized} (want no spill and none)")
+
+
 def phase_build():
     from leaf_tpu_torch.ops._build import load_library
     lib = load_library()
@@ -197,6 +228,7 @@ def phase_build():
         if ("registers" in line or "spill" in line or "smem" in line
                 or "C75" in line or line.startswith("[")):
             log(f"[build] {line.strip()}")
+    _check_fwd_bf16_build(lib.build_log)
     for name, path in lib.paths.items():
         counts = _sass_counts(path)
         log(f"[build] {name} SASS tensor-core instructions: {counts}")

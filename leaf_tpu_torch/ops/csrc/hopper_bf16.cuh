@@ -1,7 +1,8 @@
 // PTX helpers for the fused frontend's bf16 kernels (fused_frontend_bf16.cu
 // and fused_frontend_bwd_bf16.cu): bf16 rounding, bf16 pairs read at any
-// element, cp.async of 8 bytes, and wgmma.mma_async .bf16 with A from
-// registers and a K-major, unswizzled B operand in shared memory (sm_90a
+// element, cp.async of 8 bytes, wgmma.mma_async .bf16 with a K-major,
+// unswizzled B operand in shared memory and A from registers or from
+// shared memory, and bulk copies from shared to global memory (sm_90a
 // only). The f32 kernels' helpers (hopper_tf32.cuh) come along.
 //
 // wgmma layouts for bf16 (per warpgroup, warp w, lane 4 g + i):
@@ -83,21 +84,52 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[40],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// d[64 x 40] += A[64 x 16] (registers a0..a3) * B[16 x 40] (descriptor)
-__device__ __forceinline__ void wgmma_bf16(float (&d)[20],
-                                           const uint32_t (&a)[4],
-                                           uint64_t desc) {
+// d[64 x 40] (+)= A[64 x 16] * B[16 x 40], both from K-major, unswizzled
+// descriptors; with accumulate false, d = A * B (d's old values unread)
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[20], uint64_t a_desc,
+                                              uint64_t b_desc,
+                                              bool accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19}, "
-      "{%20, %21, %22, %23}, %24, p, 1, 1, 0;\n}\n"
+      "%20, %21, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "l"(a_desc), "l"(b_desc), "r"((int)accumulate));
+}
+
+// Generic-proxy writes to shared memory -> visible to the async proxy
+// (wgmma operands, bulk copies); each writing thread fences, then a
+// barrier orders the fences before the async reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from shared `src` to global `dst`, both
+// 16-byte aligned, as a bulk copy of this thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until this thread's bulk copies have read their shared sources
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// until this thread's bulk copies are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace

@@ -257,9 +257,16 @@ def _assert_within_ulp(got, ref, atol_rel):
         ((got - ref).abs() / bound).max())
 
 
+# and the bf16 forward's loop: a block whose chunks store OUT by bulk
+# copies (T % 8 == 0) or 2-byte stores (T = 16001, 12345), part-empty
+# channel groups (F = 39, 41), one block (B = 1, F <= 20) and 133 blocks
+# (one past the 132 SMs of an H100: B = 133, one frame block, F <= 20),
+# and a long row (T = 48000)
 BF16_EDGE = [(1, 1, 40), (3, 159, 3), (2, 1000, 20), (3, 1000, 21),
              (2, 3041, 20), (3, 4037, 21), (7, 1000, 40), (2, 16000, 64),
-             (3, 12345, 24), (64, 16000, 40)]
+             (3, 12345, 24), (64, 16000, 40), (1, 16000, 20),
+             (133, 1000, 20), (2, 16000, 39), (2, 16000, 41),
+             (2, 16001, 40), (2, 48000, 40)]
 
 
 @pytest.mark.parametrize("b,t,f", BF16_EDGE)
@@ -289,6 +296,17 @@ def test_bf16_kernels_match_plain(cuda_device, b, t, f):
     counts = {k: v - counts[k] for k, v in fused.launch_counts().items()}
     assert counts == {"fwd": 0, "fwd_save": 0, "bwd": 0, "fwd_bf16": 1,
                       "fwd_save_bf16": 1, "bwd_bf16": 2}
+
+
+def test_bf16_forwards_are_deterministic(cuda_device):
+    x, gabor, windows = _bf16_operands(64, 16000, 40, cuda_device)
+    assert torch.equal(fused.fused_forward_bf16_cuda(x, gabor, windows),
+                       fused.fused_forward_bf16_cuda(x, gabor, windows))
+    first = fused.fused_forward_saving_bf16_cuda(x, gabor, windows)
+    second = fused.fused_forward_saving_bf16_cuda(x, gabor, windows)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    # OUT bit for bit, signed zeros and all
+    assert torch.equal(first[1].view(torch.int16), second[1].view(torch.int16))
 
 
 def test_bf16_misaligned_waveform(cuda_device):
