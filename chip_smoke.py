@@ -9,9 +9,11 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   ``leaf_tpu_torch/ops/csrc`` (one nvcc per source, together);
                   count the tensor-core instructions (HGMMA/HMMA) in each
                   library's SASS (``cuobjdump -sass``), and the bf16 HGMMAs
-                  in the bf16 libraries: none fails; the bf16 forward's
-                  fresh build reports no spill and no wgmma serialization
-                  warning (C75xx), and its registers are logged
+                  in the bf16 libraries: none fails; the fresh builds of
+                  the bf16 forward and backward report no spill and no
+                  wgmma serialization warning (C75xx), their registers
+                  (and the backward's shared memory) are logged, and the
+                  bf16 forward keeps its 52 bf16 HGMMAs
 2. parity       — primal forward kernel vs its plain PyTorch version,
                   B=256, F=40, T ∈ {16000, 12345, 48000}; two launches
                   bit-equal; the worst ratio of error to tolerance
@@ -158,6 +160,10 @@ BF16_LOGIT_TOL = 0.05
 # batches of TRAJ_B tone clips, cycled, held to the bounds of
 # tests/test_efficientnet_parity.py::test_hundred_steps_bf16_bounded_divergence
 TRAJ_B, TRAJ_STEPS, TRAJ_WARMUP = 64, 100, 6
+# bf16 HGMMAs in the bf16 forward library's SASS (26 unrolled k-steps per
+# tile, primal and saving): an edit of the helpers it shares with the
+# backward (hopper_bf16.cuh) must leave them as they are
+FWD_BF16_HGMMAS = 52
 
 
 def log(msg: str) -> None:
@@ -190,24 +196,23 @@ def _sass_counts(path) -> dict:
     return counts
 
 
-def _check_fwd_bf16_build(build_log: str) -> None:
-    """The bf16 forward's ptxas report: its registers logged (its shared
-    memory is dynamic, the source's smem_bytes, so ptxas does not print
-    it); a spill or a wgmma serialization warning (C75xx "Potential
-    Performance Loss ... serialized") fails."""
-    section = re.search(r"^\[fused_frontend_bf16\.cu\]\n(.*?)(?=^\[|\Z)",
+def _check_bf16_build(build_log: str, source: str, tag: str) -> None:
+    """A bf16 library's ptxas report: its registers logged; a spill or a
+    wgmma serialization warning (C75xx "Potential Performance Loss ...
+    serialized") fails."""
+    section = re.search(rf"^\[{re.escape(source)}\]\n(.*?)(?=^\[|\Z)",
                         build_log, re.S | re.M)
     if section is None:
-        log("[build] fused_frontend_bf16.cu: an earlier build was reused, "
-            "its ptxas report is not in this run")
+        log(f"[build] {source}: an earlier build was reused, its ptxas "
+            "report is not in this run")
         return
     text = section.group(1)
     for line in text.splitlines():
         if "registers" in line or "spill" in line:
-            log(f"[build] fwd_bf16 ptxas: {line.strip()}")
+            log(f"[build] {tag} ptxas: {line.strip()}")
     arrives = len(re.findall(r"\(C7519\)", text))
     if arrives:
-        log(f"[build] fwd_bf16 ptxas: {arrives} warpgroup.arrive injected "
+        log(f"[build] {tag} ptxas: {arrives} warpgroup.arrive injected "
             "(C7519, not a serialization)")
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
                                          text)]
@@ -215,8 +220,8 @@ def _check_fwd_bf16_build(build_log: str) -> None:
                         | set(re.findall(r"C7513", text)))
     if not spills or any(spills) or serialized:
         raise AssertionError(
-            f"fused_frontend_bf16.cu: spills {spills}, wgmma serialization "
-            f"warnings {serialized} (want no spill and none)")
+            f"{source}: spills {spills}, wgmma serialization warnings "
+            f"{serialized} (want no spill and none)")
 
 
 def phase_build():
@@ -228,7 +233,11 @@ def phase_build():
         if ("registers" in line or "spill" in line or "smem" in line
                 or "C75" in line or line.startswith("[")):
             log(f"[build] {line.strip()}")
-    _check_fwd_bf16_build(lib.build_log)
+    # the bf16 libraries' shared memory is dynamic (ptxas does not print it)
+    _check_bf16_build(lib.build_log, "fused_frontend_bf16.cu", "fwd_bf16")
+    _check_bf16_build(lib.build_log, "fused_frontend_bwd_bf16.cu", "bwd_bf16")
+    log(f"[build] bwd_bf16 dynamic shared memory: "
+        f"{lib.fused_bwd_bf16_smem_bytes()} bytes per block")
     for name, path in lib.paths.items():
         counts = _sass_counts(path)
         log(f"[build] {name} SASS tensor-core instructions: {counts}")
@@ -236,6 +245,10 @@ def phase_build():
             raise AssertionError(f"the {name} library holds no HGMMA/HMMA")
         if name.endswith("_bf16") and not counts["HGMMA.BF16"]:
             raise AssertionError(f"the {name} library holds no bf16 HGMMA")
+        if name == "fwd_bf16" and counts["HGMMA.BF16"] != FWD_BF16_HGMMAS:
+            raise AssertionError(
+                f"the bf16 forward library holds {counts['HGMMA.BF16']} bf16 "
+                f"HGMMAs, not {FWD_BF16_HGMMAS}: its SASS changed")
 
 
 def leaf_operands(device):

@@ -36,14 +36,16 @@ BUILD_DIR = _HERE / "build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# C entry point → argument types (all return the launch's CUDA error code)
+# C entry point → argument types (the launches return the launch's CUDA
+# error code, the bf16 backward's smem_bytes its shared memory per block)
 _SIGNATURES = {
     "fwd": {"leaf_fused_fwd_f32": [_PTR] * 4 + [_INT] * 4 + [_PTR],
             "leaf_fused_fwd_save_f32": [_PTR] * 5 + [_INT] * 4 + [_PTR]},
     "bwd": {"leaf_fused_bwd_f32": [_PTR] * 6 + [_INT] * 5 + [_PTR]},
     "fwd_bf16": {"leaf_fused_fwd_bf16": [_PTR] * 4 + [_INT] * 4 + [_PTR],
                  "leaf_fused_fwd_save_bf16": [_PTR] * 5 + [_INT] * 4 + [_PTR]},
-    "bwd_bf16": {"leaf_fused_bwd_bf16": [_PTR] * 6 + [_INT] * 5 + [_PTR]},
+    "bwd_bf16": {"leaf_fused_bwd_bf16": [_PTR] * 6 + [_INT] * 5 + [_PTR],
+                 "leaf_fused_bwd_bf16_smem_bytes": []},
 }
 
 

@@ -261,12 +261,19 @@ def _assert_within_ulp(got, ref, atol_rel):
 # copies (T % 8 == 0) or 2-byte stores (T = 16001, 12345), part-empty
 # channel groups (F = 39, 41), one block (B = 1, F <= 20) and 133 blocks
 # (one past the 132 SMs of an H100: B = 133, one frame block, F <= 20),
-# and a long row (T = 48000)
+# and a long row (T = 48000); and the bf16 backward's window-major walk:
+# a run of kRun = 32 rows cut at the batch end (B = 33), block ranges
+# that start mid-run (B = 133 over 132 blocks), accumulator flushes inside
+# runs (B = 40, T = 48000: ~450 chunks per block), the unaligned staging
+# path (T = 16001), runs of one row (B = 1) and a part-empty channel group
+# (F = 41)
 BF16_EDGE = [(1, 1, 40), (3, 159, 3), (2, 1000, 20), (3, 1000, 21),
              (2, 3041, 20), (3, 4037, 21), (7, 1000, 40), (2, 16000, 64),
              (3, 12345, 24), (64, 16000, 40), (1, 16000, 20),
              (133, 1000, 20), (2, 16000, 39), (2, 16000, 41),
-             (2, 16001, 40), (2, 48000, 40)]
+             (2, 16001, 40), (2, 48000, 40), (33, 1000, 40),
+             (133, 1000, 40), (40, 48000, 40), (1, 16000, 40),
+             (5, 3041, 41)]
 
 
 @pytest.mark.parametrize("b,t,f", BF16_EDGE)
