@@ -44,7 +44,27 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   cuDNN composition at B=256, T=16000 (CUDA events);
                   serving latency per bucket, f32 and bf16; the train step
                   fused, 'off' and bf16, with a torch.profiler split
-8. cli          — the flagship recipe through ``python -m
+8. stream       — the streaming frontend (``LeafStreamer``, seeded
+                  flagship Leaf): 64 streams of 1 s and 8 of 3 s with a
+                  flush remainder in 1600-sample chunks, held against the
+                  offline Leaf ('off' at tests/test_streaming.py's TOL; the
+                  fused kernel's Leaf, logged ratio; bf16 against bf16);
+                  per-chunk latency
+9. export       — ``save_exported`` at buckets (8, 64), f32 and bf16,
+                  ``ServingModel.load``: requests of 3, 8, 64 and 100 clips
+                  against the live ``ServingModel``, one primal launch of
+                  the dtype's kernel per bucket forward (the kernels run
+                  inside the programs as ``torch.ops.leaf_tpu_torch`` ops);
+                  the streaming artifact against the live streamer;
+                  latency and a profile per bucket, artifact and live
+10. multistep   — ``make_train_multistep`` at B=256, f32 and bf16: a K=4
+                  CUDA-graph replay against 4 eager steps from the same
+                  state and generator state (augment, dropout and
+                  drop-connect on), 4 saving-forward and 4 backward
+                  launches of the dtype's kernels per replay in the
+                  profiler, host ms per step at K = 1 (eager), 4 and 8
+                  (graph) with device-busy time, idle share and pool size
+11. cli         — the flagship recipe through ``python -m
                   leaf_tpu_torch.train`` / ``.evaluate`` on a synthetic tone
                   task (35 classes; 1024 train, 256 val clips of 1 s, 48
                   test clips of 1–3 s): 2 epochs at B=256 (saving forward =
@@ -54,8 +74,12 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   for an epoch and evaluate reading bf16 from its
                   hparams.json (bf16 kernels only); the train loop's
                   clips/s, each CLI's wall time, and the train DataLoader's
-                  clips/s alone (in_memory off and on)
-9. report       — card name and power limit, the ``kernels`` JSON line (six
+                  clips/s alone (in_memory off and on); ``export_serving``
+                  on the trained experiment (its artifact against the live
+                  model of the checkpoint); ``train --steps_per_call 4``
+                  for 2 epochs (epoch 1 replays the graph; the epoch line
+                  counts the replays' launches)
+12. report       — card name and power limit, the ``kernels`` JSON line (six
                   kernels: f32 and bf16), and the last line
                   ``{"ok": true, "device": {...}}``
 
@@ -582,7 +606,7 @@ def _no_launches() -> dict:
 
 
 def _trainer(cfg, state, device, augment: bool, steps_per_epoch: int,
-             epochs: int):
+             epochs: int, capturable: bool = False):
     """(TrainState, train step) for ``cfg`` from the weights ``state``."""
     from leaf_tpu_torch.data import leaf_device_augment
     from leaf_tpu_torch.models import Classifier
@@ -592,7 +616,7 @@ def _trainer(cfg, state, device, augment: bool, steps_per_epoch: int,
     clf.load_state_dict(state)
     opt, sched, _, _ = optimization_helper(
         cfg, clf.parameters(), num_tr_steps_per_epoch=steps_per_epoch,
-        num_epochs=epochs)
+        num_epochs=epochs, capturable=capturable)
     return (TrainState(clf, opt, sched),
             make_train_step(augment_fn=leaf_device_augment if augment
                             else None))
@@ -1003,6 +1027,352 @@ def phase_train_timing(device, state):
     return medians
 
 
+# ---------------------------------------------------------------- [stream]
+# streamed frames vs the offline Leaf: tests/test_streaming.py's TOL
+# against the unfused 'off' Leaf (the same math, other summation orders);
+# against the fused kernel's Leaf, |a − b| ≤ STREAM_FUSED_RTOL·|b| +
+# STREAM_FUSED_ATOL_REL·max|b| (the kernel's 3×TF32 sums, the same
+# tolerance shape as its parity check, widened by PCEN's x^(1/2)); bf16
+# streamed vs bf16 offline 'off' to tests/test_torch_port_bf16.py's
+# LEAF_FEATURE_TOL of max|b|; the exported cells vs the live streamer to
+# tests/test_serving.py's rtol 1e-6, atol 1e-7.
+STREAM_TOL = {"rtol": 2e-5, "atol": 2e-6}
+STREAM_FUSED_RTOL, STREAM_FUSED_ATOL_REL = 1e-3, 1e-5
+STREAM_BF16_TOL = 2e-5
+STREAM_CHUNK, STREAM_N, STREAM_LONG = 1600, 64, 48480  # 3 s + 3 hops
+SERVED_STREAM_TOL = {"rtol": 1e-6, "atol": 1e-7}
+# an artifact's logits vs the live module's: tests/test_serving.py's
+# atol 1e-5, relative to max|logit|
+ARTIFACT_TOL = 1e-5
+MULTI_K = 4
+# graph vs eager parameters: tests/test_training.py's multistep bounds
+MULTI_ATOL, MULTI_RTOL, MULTI_LOSS_RTOL = 2e-4, 1e-4, 1e-5
+# the kernels' symbols as the profiler names them, by launch_counts name
+KERNEL_SYMBOLS = {"fwd_save": "fused_fwd_tf32x3_kernel<true>",
+                  "bwd": "fused_bwd_tf32x3_kernel",
+                  "fwd_save_bf16": "fused_fwd_bf16_kernel<true>",
+                  "bwd_bf16": "fused_bwd_bf16_kernel"}
+
+
+def _stream(streamer, wave, chunk: int, sync_times=None):
+    """Stream ``wave`` (B, T) in chunks, the remainder to ``flush``;
+    returns the frames (numpy). With ``sync_times`` (a list) each
+    process() call's host-clock ms, synchronised, is appended."""
+    n = wave.shape[1] // chunk
+    outs = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        outs.append(streamer.process(wave[:, i * chunk:(i + 1) * chunk]))
+        if sync_times is not None:
+            torch.cuda.synchronize()
+            sync_times.append((time.perf_counter() - t0) * 1e3)
+    rem = wave[:, n * chunk:]
+    outs.append(streamer.flush(rem if rem.shape[1] else None))
+    return torch.cat(outs, dim=1).float().cpu().numpy()
+
+
+def phase_stream(device):
+    """The streaming frontend (seeded flagship Leaf, 40 filters): 64
+    streams of 1 s and 8 of 3 s + 480 samples (a flush remainder) in
+    1600-sample chunks, against the offline Leaf, f32 and bf16."""
+    from leaf_tpu_torch.frontend import Leaf, LeafStreamer
+    bf16 = torch.bfloat16
+    leaf = Leaf(device=device, generator=torch.Generator().manual_seed(3))
+    off = Leaf(use_fused_kernel="off", device=device)
+    off_b = Leaf(use_fused_kernel="off", compute_dtype=bf16, device=device)
+    for m in (off, off_b):
+        m.load_state_dict(leaf.state_dict())
+    rng = np.random.RandomState(14)
+    latencies = []
+    for name, b, t in (("1 s", STREAM_N, 16000), ("3 s", 8, STREAM_LONG)):
+        wave = (rng.randn(b, t) * 0.1).astype(np.float32)
+        x = torch.from_numpy(wave).to(device)
+        got = _stream(LeafStreamer(leaf, STREAM_CHUNK), wave, STREAM_CHUNK,
+                      latencies if name == "1 s" else None)
+        with torch.no_grad():
+            ref, fused = off(x).cpu().numpy(), leaf(x).cpu().numpy()
+            ref_b = off_b(x).cpu().numpy()
+        got_b = _stream(LeafStreamer(off_b, STREAM_CHUNK), wave,
+                        STREAM_CHUNK)
+        err = np.abs(got - ref)
+        ratio = float((err / (STREAM_TOL["atol"]
+                              + STREAM_TOL["rtol"] * np.abs(ref))).max())
+        fused_ratio = float((np.abs(got - fused) / (
+            STREAM_FUSED_RTOL * np.abs(fused)
+            + STREAM_FUSED_ATOL_REL * np.abs(fused).max())).max())
+        b_rel = float(np.abs(got_b - ref_b).max() / np.abs(ref_b).max())
+        log(f"[stream] {b} streams of {name} ({t} samples) in "
+            f"{STREAM_CHUNK}-sample chunks: frames {got.shape}; vs offline "
+            f"'off' max err {err.max():.3e}, worst ratio to TOL "
+            f"{ratio:.3f}; vs the fused kernel's offline Leaf worst ratio "
+            f"{fused_ratio:.3f} (rtol {STREAM_FUSED_RTOL:g} + "
+            f"{STREAM_FUSED_ATOL_REL:g}·max); bf16 streamed vs bf16 "
+            f"offline max-rel {b_rel:.3e} (tol {STREAM_BF16_TOL:g})")
+        if (got.shape != ref.shape or ratio > 1.0 or fused_ratio > 1.0
+                or b_rel > STREAM_BF16_TOL):
+            raise AssertionError(f"streamed frames disagree ({name})")
+    steady = latencies[1:]
+    log(f"[stream] per-chunk latency, {STREAM_N} streams x {STREAM_CHUNK} "
+        f"samples (host clock, synchronised): first call "
+        f"{latencies[0]:.3f} ms; steady median {np.median(steady):.3f} ms, "
+        f"p90 {np.percentile(steady, 90):.3f} ms over {len(steady)} chunks")
+    return leaf
+
+
+def _latency(server, req, n: int = 20) -> float:
+    for _ in range(3):
+        server(req)
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        server(req)  # returns host numpy: ends in a device sync
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(lat))
+
+
+def phase_export(device, state, leaf, tmp):
+    """``save_exported`` at buckets (8, 64), f32 and bf16, loaded with
+    ``ServingModel.load`` and held against the live ``ServingModel``;
+    one primal launch of the dtype's kernel per bucket forward; the
+    streaming artifact against the live streamer; latencies."""
+    from leaf_tpu_torch.frontend import LeafStreamer
+    from leaf_tpu_torch.serving import (ServingModel, StreamingServingModel,
+                                        save_exported,
+                                        save_exported_streaming)
+    rng = np.random.RandomState(15)
+    requests = {n: (rng.randn(n, 16000) * 0.1).astype(np.float32)
+                for n in REQUEST_SIZES}
+    forwards = sum(-(-n // BUCKETS[-1]) for n in REQUEST_SIZES)
+    launches = {}
+    for dtype, cfg, sfx in (("f32", FLAGSHIP_CFG, ""),
+                            ("bf16", _bf16(FLAGSHIP_CFG), "_bf16")):
+        out = os.path.join(tmp, f"serving_{dtype}")
+        t0 = time.perf_counter()
+        save_exported(out, cfg, state_dict=state, device=device,
+                      batch_sizes=BUCKETS)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        art = ServingModel.load(out, device=device)
+        t_load = time.perf_counter() - t0
+        live = ServingModel(cfg, state_dict=state, device=device,
+                            batch_sizes=BUCKETS)
+        _zero_counts()
+        outs = {n: art(requests[n]) for n in REQUEST_SIZES}
+        torch.cuda.synchronize()
+        counts = _counts()
+        launches[dtype] = counts["fwd" + sfx]
+        worst = 0.0
+        for n in REQUEST_SIZES:
+            ref = live(requests[n])
+            worst = max(worst, float(np.abs(outs[n] - ref).max()
+                                     / np.abs(ref).max()))
+            if outs[n].shape != (n, 35) or not np.isfinite(outs[n]).all():
+                raise AssertionError(f"bad artifact logits for {n} clips")
+        log(f"[export] {dtype}: exported buckets {BUCKETS} in "
+            f"{t_export:.1f} s, loaded in {t_load:.1f} s "
+            f"({sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out)) / 2**20:.1f} MiB); "
+            f"requests {REQUEST_SIZES} -> {forwards} bucket forwards, kernel "
+            f"launches {counts}; artifact vs live max|a-b|/max|b| "
+            f"{worst:.3e} (tol {ARTIFACT_TOL:g})")
+        if counts != {**_no_launches(), "fwd" + sfx: forwards}:
+            raise AssertionError(f"expected one {dtype} primal launch per "
+                                 f"bucket forward ({forwards}), {counts}")
+        if worst > ARTIFACT_TOL:
+            raise AssertionError(f"{dtype} artifact disagrees with live")
+        for bucket in BUCKETS:
+            req = (rng.randn(bucket, 16000) * 0.1).astype(np.float32)
+            lat = {}
+            for name, server in (("artifact", art), ("live", live),
+                                 ("live ", live), ("artifact ", art)):
+                lat.setdefault(name.strip(), []).append(_latency(server, req))
+            log(f"[export] {dtype} bucket {bucket}: median latency artifact "
+                f"{' / '.join(f'{v:.3f}' for v in lat['artifact'])} ms, live "
+                f"{' / '.join(f'{v:.3f}' for v in lat['live'])} ms (host "
+                f"clock, 20 requests each, artifact-live-live-artifact)")
+            for name, server in (("artifact", art), ("live", live)):
+                profile_requests(server, req, float(np.mean(lat[name])),
+                                 f"{name} {dtype} bucket {bucket}")
+        del art, live
+    out = os.path.join(tmp, "serving_stream")
+    save_exported_streaming(out, leaf, STREAM_CHUNK, STREAM_N)
+    served = StreamingServingModel.load(out, device=device)
+    wave = (rng.randn(STREAM_N, 16000) * 0.1).astype(np.float32)
+    lat_art, lat_live = [], []
+    a = _stream(served, wave, STREAM_CHUNK, lat_art)
+    b = _stream(LeafStreamer(leaf, STREAM_CHUNK), wave, STREAM_CHUNK,
+                lat_live)
+    err = float(np.abs(a - b).max())
+    ok = np.allclose(a, b, **SERVED_STREAM_TOL) and a.shape == b.shape
+    log(f"[export] streaming artifact ({STREAM_N} streams, chunk "
+        f"{STREAM_CHUNK}): frames {a.shape} vs the live streamer max err "
+        f"{err:.3e} (rtol 1e-6, atol 1e-7) -> {'ok' if ok else 'FAIL'}; "
+        f"steady per-chunk median artifact {np.median(lat_art[1:]):.3f} ms, "
+        f"live {np.median(lat_live[1:]):.3f} ms")
+    if not ok:
+        raise AssertionError("streaming artifact disagrees with live")
+    return launches
+
+
+def _profiled(fn) -> tuple:
+    """(device-busy ms, kernel launches by KERNEL_SYMBOLS name) of one
+    ``fn()`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if _is_device_work(e)]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    seen = {name: sum(e.count for e in events if sym in e.key)
+            for name, sym in KERNEL_SYMBOLS.items()}
+    return busy, seen
+
+
+def _stacked(rng, k: int, device):
+    xs = torch.from_numpy((rng.randn(k, TRAIN_B, 16000) * 0.1)
+                          .astype(np.float32)).to(device)
+    ys = torch.from_numpy(rng.randint(0, 35, (k, TRAIN_B))).to(device)
+    return xs, ys
+
+
+def _twin(cfg, st, gen, device):
+    """A second train state with copies of ``st``'s weights, buffers,
+    optimizer and schedule, and a generator at ``gen``'s state."""
+    import copy
+
+    from leaf_tpu_torch.training import TrainState
+    twin, step = _trainer(cfg, st.model.state_dict(), device, True,
+                          STEPS_PER_EPOCH, EPOCHS, capturable=True)
+    twin.optimizer.load_state_dict(copy.deepcopy(st.optimizer.state_dict()))
+    twin.scheduler.load_state_dict(st.scheduler.state_dict())
+    twin.step = st.step
+    g = torch.Generator(device=device)
+    g.set_state(gen.get_state())
+    return twin, step, g
+
+
+def phase_multistep(device, state):
+    """K train steps per call as one CUDA graph, B=256, f32 and bf16, with
+    augment, dropout and drop-connect on: a replay against K eager steps
+    from the same state and generator state, its kernels in the profiler,
+    and host ms per step at K = 1 (eager), 4 and 8 (graph)."""
+    from leaf_tpu_torch.data import leaf_device_augment
+    from leaf_tpu_torch.training import make_train_multistep
+    results = {}
+    for dtype, cfg, sfx in (("f32", TRAIN_CFG, ""),
+                            ("bf16", _bf16(TRAIN_CFG), "_bf16")):
+        tag = f"[multistep] {dtype}"
+        rng = np.random.RandomState(16)
+        st, _ = _trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS,
+                         capturable=True)
+        gen = torch.Generator(device=device).manual_seed(16)
+        multi = make_train_multistep(MULTI_K, augment_fn=leaf_device_augment)
+        groups = [_stacked(rng, MULTI_K, device) for _ in range(3)]
+        t0 = time.perf_counter()
+        multi(st, *groups[0], gen)  # K eager steps, then the capture
+        torch.cuda.synchronize()
+        log(f"{tag}: first call (K={MULTI_K} eager steps + capture) "
+            f"{time.perf_counter() - t0:.2f} s; graph pool "
+            f"{multi.pool_bytes / 2**30:.2f} GiB; launches per replay "
+            f"{multi.per_replay}")
+        want = {"fwd_save" + sfx: MULTI_K, "bwd" + sfx: MULTI_K}
+        if multi.per_replay != want:
+            raise AssertionError(f"{tag}: per replay {multi.per_replay}, "
+                                 f"want {want}")
+        twin, step, tgen = _twin(cfg, st, gen, device)
+        _zero_counts()
+        got = multi(st, *groups[1], gen)
+        torch.cuda.synchronize()
+        replay_counts = _counts()
+        ref = [step(twin, groups[1][0][k], groups[1][1][k], tgen)
+               for k in range(MULTI_K)]
+        ref_loss = float(torch.stack([m["loss"] for m in ref]).float().mean())
+        loss_rel = abs(float(got["loss"]) - ref_loss) / abs(ref_loss)
+        correct = (int(got["correct"]), int(sum(int(m["correct"])
+                                                for m in ref)))
+        count = (int(got["count"]), int(sum(int(m["count"]) for m in ref)))
+        worst, equal = 0.0, True
+        twin_params = dict(twin.model.named_parameters())
+        for name, p in st.model.named_parameters():
+            q = twin_params[name]
+            worst = max(worst, float(((p - q).detach().abs()
+                                      / (MULTI_ATOL + MULTI_RTOL * q.abs()))
+                                     .max()))
+            equal = equal and torch.equal(p, q)
+        ok = (st.step == twin.step == 2 * MULTI_K and loss_rel <= MULTI_LOSS_RTOL
+              and correct[0] == correct[1] and count[0] == count[1]
+              and worst <= 1.0 and replay_counts == _no_launches())
+        log(f"{tag}: replay vs {MULTI_K} eager steps from the same state "
+            f"and generator state: step {st.step} vs {twin.step}; loss "
+            f"{float(got['loss']):.6f} vs {ref_loss:.6f} (rel {loss_rel:.2e}, "
+            f"tol {MULTI_LOSS_RTOL:g}); correct {correct[0]} vs "
+            f"{correct[1]}; count {count[0]} vs {count[1]}; parameters "
+            f"worst ratio {worst:.3e} to atol {MULTI_ATOL:g} + rtol "
+            f"{MULTI_RTOL:g} (bit-equal: {equal}); wrapper counts during "
+            f"the replay {replay_counts} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: the graph disagrees with eager "
+                                 "steps")
+        del twin, ref
+        busy, seen = _profiled(lambda: multi(st, *groups[2], gen))
+        log(f"{tag}: profiler, one replay: {seen} kernel launches, device "
+            f"busy {busy:.3f} ms")
+        if {k: v for k, v in seen.items() if v} != want:
+            raise AssertionError(f"{tag}: the profiler saw {seen}, want "
+                                 f"{want} per replay")
+        results[dtype] = {"per_replay": multi.per_replay}
+        del st, multi, groups
+        torch.cuda.empty_cache()
+        results[dtype]["timing"] = _multistep_timing(device, state, cfg, tag)
+    return results
+
+
+def _multistep_timing(device, state, cfg, tag: str) -> dict:
+    """Host-clock ms per step, device-busy ms per step and the idle share
+    at K = 1 (eager make_train_step) and K = 4, 8 (graph)."""
+    from leaf_tpu_torch.data import leaf_device_augment
+    from leaf_tpu_torch.training import make_train_multistep
+    out = {}
+    for k in (1, 4, 8):
+        st, step = _trainer(cfg, state, device, True, STEPS_PER_EPOCH,
+                            EPOCHS, capturable=k > 1)
+        gen = torch.Generator(device=device).manual_seed(17)
+        xs, ys = _stacked(np.random.RandomState(17), k, device)
+        if k == 1:
+            def call(st=st, step=step, gen=gen, xs=xs, ys=ys):
+                step(st, xs[0], ys[0], gen)
+            pool = 0
+        else:
+            multi = make_train_multistep(k, augment_fn=leaf_device_augment)
+
+            def call(st=st, multi=multi, gen=gen, xs=xs, ys=ys):
+                multi(st, xs, ys, gen)
+        for _ in range(3):
+            call()
+        pool = 0 if k == 1 else multi.pool_bytes
+        times = []
+        for _ in range(TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / k)
+        busy, _ = _profiled(call)
+        med = float(np.median(times))
+        out[k] = {"ms": med, "busy_ms": busy / k, "pool_bytes": pool}
+        log(f"{tag} timing K={k} ({'eager' if k == 1 else 'graph'}): "
+            f"median {med:.3f} ms/step ({TRAIN_B / med * 1e3:.1f} clips/s), "
+            f"min {min(times):.3f}, max {max(times):.3f} ({TIMED_STEPS} "
+            f"calls after 3, host clock); device busy {busy / k:.3f} "
+            f"ms/step, idle {1 - busy / k / med:.1%}; graph pool "
+            f"{pool / 2**30:.2f} GiB")
+        del st, step, call
+        if k > 1:
+            del multi
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ [cli]
 # The synthetic tone task (after scripts/synthetic_convergence.py): class c
 # is a tone in the band 200 + 150·c ± 40 Hz with a random gain and phase,
@@ -1138,6 +1508,30 @@ def _time_decode(cfg: dict, n: int = 256) -> float:
     return (time.perf_counter() - t0) / n * 1e6
 
 
+def _check_exported(exp: str, out: str) -> None:
+    """The export CLI's artifacts (``out``) against the live model of the
+    checkpoint it exported (the best of ``exp``), on the card."""
+    from leaf_tpu_torch.serving import ServingModel
+    from leaf_tpu_torch.training.checkpoint import (best_checkpoint,
+                                                    load_hparams)
+    ckpt = best_checkpoint(exp)
+    weights = torch.load(os.path.join(ckpt, "state.pt"), map_location="cpu",
+                         weights_only=True)["model"]
+    live = ServingModel(load_hparams(exp), state_dict=weights,
+                        batch_sizes=(8,))
+    art = ServingModel.load(out)
+    x = (np.random.RandomState(18).randn(20, 16000) * 0.1).astype(np.float32)
+    a, b = art(x), live(x)
+    rel = float(np.abs(a - b).max() / np.abs(b).max())
+    with open(os.path.join(out, "serving_stream.json")) as f:
+        roles = sorted(json.load(f)["files"])
+    log(f"[cli] export_serving: {sorted(os.listdir(out))}; artifact vs the "
+        f"live model of {os.path.basename(ckpt)} on 20 clips: max|a-b|/max|b| "
+        f"{rel:.3e} (tol {ARTIFACT_TOL:g}); streaming roles {roles}")
+    if rel > ARTIFACT_TOL or roles != ["first", "flush_0", "steady"]:
+        raise AssertionError("export_serving's artifact disagrees")
+
+
 def phase_cli(tmp: str) -> dict:
     """The flagship recipe through the CLIs on the synthetic tone task:
     train 2 epochs, preempt and resume, evaluate (and skip), and the host
@@ -1181,6 +1575,17 @@ def phase_cli(tmp: str) -> dict:
         f"epoch {e[0]} {e[3]:.1f} clips/s" for e in epochs)
         + " (RateTracker.global_rate over the epoch's steps, read after "
         "the last step's loss)")
+
+    # the export CLI on this experiment: its artifacts against the live
+    # model of the checkpoint it read
+    out, walls["export_serving"] = _cli(
+        "export_serving", ["--exp_dir", exp, "--out_dir",
+                           os.path.join(tmp, "serving"), "--batch_sizes",
+                           "8", "--streaming_chunk", "1600",
+                           "--streaming_streams", "8"],
+        "export_serving --batch_sizes 8 --streaming_chunk 1600")
+    _check_exported(exp, os.path.join(tmp, "serving"))
+    k1_rate = epochs[-1][3]
 
     # preempt mid-epoch, then resume. The host enqueues steps ahead of the
     # card, so the signal lands in epoch 2 or later: read which.
@@ -1268,6 +1673,25 @@ def phase_cli(tmp: str) -> dict:
     log(f"[cli] evaluate (bf16 from hparams.json): {rows[1]}; kernel "
         f"launches {ev_counts}")
 
+    # K = 4 steps per call: epoch 0 runs its one group eagerly and
+    # captures, epoch 1 replays; the epoch line adds the replays' launches
+    kexp = os.path.join(tmp, "exp_k4")
+    out, walls["train --steps_per_call 4"] = _cli(
+        "train", ["--cfg_file", cfg_file, "--expdir", kexp, "--num_workers",
+                  "4", "--epochs", "2", "--steps_per_call", "4"],
+        "train --steps_per_call 4 --epochs 2")
+    epochs = _epoch_lines(out)
+    counts = epochs[-1][4] if len(epochs) == 2 else {}
+    if (len(epochs) != 2 or not all(np.isfinite(e[1]) for e in epochs)
+            or counts.get("fwd_save") != 2 * steps
+            or counts.get("bwd") != 2 * steps):
+        raise AssertionError(f"train --steps_per_call 4: epochs {epochs}")
+    log(f"[cli] train --steps_per_call 4: losses {[e[1] for e in epochs]}; "
+        f"kernel launches {counts} (saving forward = backward = "
+        f"{2 * steps} steps, replays included); train loop epoch 1 "
+        f"{epochs[1][3]:.1f} clips/s (K=4, a replay) vs {k1_rate:.1f} "
+        f"(K=1, the first run's epoch 1)")
+
     loader = {(mem, w): _time_loader(cfg, mem, w)
               for mem, w in ((False, 1), (False, 4), (True, 4))}
     for (mem, w), rates in loader.items():
@@ -1297,22 +1721,38 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    phase_build()
-    max_abs_err = phase_parity(device)
-    fwd_save_err, bwd_err = phase_parity_train(device)
-    bf16_err = phase_parity_bf16(device)
-    launches, server, state = phase_serving(device)
-    bf16_launches, server_bf16 = phase_serving_bf16(device)
-    train_counts = phase_train(device, state)
-    bf16_counts = phase_train(device, state, bf16=True)
-    phase_train_parity(device, state)
-    phase_trajectory(device, state)
-    timing = phase_timings(device, {"f32": server, "bf16": server_bf16})
-    phase_train_timing(device, state)
-    del server, server_bf16, state
+
+    def timed(phase, fn, *args, **kw):
+        start = time.perf_counter()
+        out = fn(*args, **kw)
+        log(f"[{phase}] phase took {time.perf_counter() - start:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    max_abs_err = timed("parity", phase_parity, device)
+    fwd_save_err, bwd_err = timed("parity-train", phase_parity_train, device)
+    bf16_err = timed("parity-bf16", phase_parity_bf16, device)
+    launches, server, state = timed("serving", phase_serving, device)
+    bf16_launches, server_bf16 = timed("serving-bf16", phase_serving_bf16,
+                                       device)
+    train_counts = timed("train", phase_train, device, state)
+    bf16_counts = timed("train-bf16", phase_train, device, state, bf16=True)
+    timed("train-parity", phase_train_parity, device, state)
+    timed("trajectory", phase_trajectory, device, state)
+    timing = timed("timing", phase_timings, device,
+                   {"f32": server, "bf16": server_bf16})
+    timed("train-timing", phase_train_timing, device, state)
+    del server, server_bf16
+    torch.cuda.empty_cache()
+    leaf = timed("stream", phase_stream, device)
+    with tempfile.TemporaryDirectory(prefix="leaf_export_") as tmp:
+        timed("export", phase_export, device, state, leaf, tmp)
+    del leaf
+    timed("multistep", phase_multistep, device, state)
+    del state
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="leaf_cli_") as tmp:
-        phase_cli(tmp)
+        timed("cli", phase_cli, tmp)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -13,7 +13,7 @@ reference interleaves them, which the squared modulus pairs back up).
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -31,9 +31,10 @@ def gabor_constraint(kernel_data: torch.Tensor, kernel_size: int) -> torch.Tenso
 
     Parity: reference leaf_pytorch/convolution.py:10-22.
     """
-    # bounds in the parameters' dtype, rounded as the JAX function rounds them
-    sqrt_2log2 = torch.sqrt(2.0 * torch.log(torch.tensor(
-        2.0, dtype=kernel_data.dtype, device=kernel_data.device)))
+    # bounds in the parameters' dtype, rounded as the JAX function rounds
+    # them (a device fill: no host-to-device copy inside a CUDA graph)
+    sqrt_2log2 = torch.sqrt(2.0 * torch.log(torch.full(
+        (), 2.0, dtype=kernel_data.dtype, device=kernel_data.device)))
     mu = torch.clamp(kernel_data[:, 0], 0.0, math.pi)
     sigma = torch.clamp(
         kernel_data[:, 1],
@@ -44,11 +45,13 @@ def gabor_constraint(kernel_data: torch.Tensor, kernel_size: int) -> torch.Tenso
 
 
 class GaborConv1d(nn.Module):
-    """Complex Gabor filterbank applied as a real stride-1 TF-SAME conv1d,
-    without bias — the configuration LEAF uses (reference
-    ``GaborConv1d``, convolution.py:25-99)."""
+    """Complex Gabor filterbank applied as a real stride-1 conv1d, without
+    bias — the configuration LEAF uses (reference ``GaborConv1d``,
+    convolution.py:25-99). ``padding`` is ``"same"`` (TF-SAME, the
+    default) or a (left, right) pair; the streaming cell uses (0, 0)."""
 
     def __init__(self, filters: int, kernel_size: int,
+                 padding: Union[str, Tuple[int, int]] = "same",
                  initializer: Union[str, Callable] = "default",
                  sample_rate: int = 16000, min_freq: float = 60.0,
                  max_freq: float = 7800.0, device=None,
@@ -56,6 +59,8 @@ class GaborConv1d(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.kernel_size = kernel_size
+        self.padding = (tf_same_padding_1d(kernel_size)
+                        if padding == "same" else tuple(padding))
         init_fn = initializers.make_initializer(
             initializer, window_len=kernel_size, sample_rate=sample_rate,
             min_freq=min_freq, max_freq=max_freq)
@@ -71,5 +76,4 @@ class GaborConv1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, 1, T) → (B, 2F, T')."""
         bank = self.emit_filters().T[:, None, :]  # (2F, 1, K)
-        return F.conv1d(F.pad(x, tf_same_padding_1d(self.kernel_size)),
-                        bank.to(x.dtype))
+        return F.conv1d(F.pad(x, self.padding), bank.to(x.dtype))

@@ -27,8 +27,10 @@ def gabor_filters_real_imag(kernel: torch.Tensor, size: int = 401
     t = torch.arange(-(size // 2), (size + 1) // 2, dtype=kernel.dtype,
                      device=kernel.device)
     center, fwhm = kernel[:, 0], kernel[:, 1]
-    norm = torch.sqrt(torch.tensor(2.0 * math.pi, dtype=kernel.dtype,
-                                   device=kernel.device))
+    # torch.full, not torch.tensor: no host-to-device copy (a CUDA graph
+    # of train steps captures this)
+    norm = torch.sqrt(torch.full((), 2.0 * math.pi, dtype=kernel.dtype,
+                                 device=kernel.device))
     envelope = (1.0 / (norm * fwhm))[:, None] * torch.exp(
         torch.outer(1.0 / (2.0 * fwhm ** 2), -(t ** 2)))  # (F, K)
     phase = torch.outer(center, t)  # (F, K)

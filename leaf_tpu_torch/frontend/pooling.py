@@ -9,7 +9,7 @@ the reference's (``weights`` (1, 1, C, 1), ``_bias`` (C,)).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -38,14 +38,18 @@ def depthwise_strided_conv(x: torch.Tensor, windows: torch.Tensor,
 
 
 class GaussianLowPass(nn.Module):
-    """Strided TF-SAME Gaussian lowpass with bias — the configuration LEAF
-    uses (reference ``GaussianLowPass``, pooling.py:8-42)."""
+    """Strided Gaussian lowpass with bias — the configuration LEAF uses
+    (reference ``GaussianLowPass``, pooling.py:8-42). ``padding`` is
+    ``"same"`` (TF-SAME, the default) or a (left, right) pair."""
 
     def __init__(self, in_channels: int, kernel_size: int, strides: int = 1,
+                 padding: Union[str, Tuple[int, int]] = "same",
                  device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel_size = kernel_size
         self.strides = strides
+        self.padding = (tf_same_padding_1d(kernel_size)
+                        if padding == "same" else tuple(padding))
         self.weights = nn.Parameter(torch.full(
             (1, 1, in_channels, 1), 0.4, device=device, dtype=dtype))
         self._bias = nn.Parameter(torch.ones(in_channels, device=device,
@@ -59,6 +63,5 @@ class GaussianLowPass(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, C) → (B, T', C), T' = ceil(T / strides) under SAME."""
         windows, bias = self.emit_windows()
-        return depthwise_strided_conv(
-            x, windows, self.strides,
-            tf_same_padding_1d(self.kernel_size)) + bias
+        return depthwise_strided_conv(x, windows, self.strides,
+                                      self.padding) + bias

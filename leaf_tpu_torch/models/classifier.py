@@ -8,7 +8,7 @@ Submodules are named ``features`` and ``model`` as in the reference, so
 ``model._blocks.0._depthwise_conv.weight`` and so on.
 
 This slice ports the efficientnet backbone only; the other arches raise
-``NotImplementedError`` until their slice (ROADMAP Queue 1 item 9).
+``NotImplementedError`` until their slice (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def get_classifier(opt: dict, device=None,
                 f"Invalid value {depth} of depth for {pending} arch")
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet: the rest of the model zoo is a "
-            "later slice of the port (ROADMAP Queue 1 item 9)")
+            "later slice of the port (ROADMAP Queue 1 item 10)")
     if arch != "efficientnet":
         raise ValueError(f"Unsupported value {arch} for opt['arch']")
     variant = opt["model_depth"]  # e.g. 'b0'

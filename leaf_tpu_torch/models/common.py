@@ -127,7 +127,7 @@ def _keep_mask(shape, rate: float, x: torch.Tensor,
 def _weak(value: float, x: torch.Tensor) -> torch.Tensor:
     """A Python scalar as JAX's weak typing gives it to an op on x: rounded
     to x's dtype (0.8 is 0.80078125 in bf16)."""
-    return torch.tensor(value, dtype=x.dtype, device=x.device)
+    return torch.full((), value, dtype=x.dtype, device=x.device)
 
 
 def drop_connect(x: torch.Tensor, rate: float,

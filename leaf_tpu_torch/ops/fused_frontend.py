@@ -38,6 +38,13 @@ f32, OUT saved in bf16; in the backward dY, the windows of dS, S for
 d_windows and dOUT rounded to bf16, d_bank returned in bf16 and
 d_windows in f32. Any other mix of dtypes raises.
 
+The three are registered as ``torch.library`` custom ops,
+``torch.ops.leaf_tpu_torch.{fused_fwd, fused_fwd_save, fused_bwd}``
+(``fused_fwd_op`` and its siblings here): the CUDA implementation is the
+kernel wrapper of the operands' dtype, the CPU one the plain version, and
+a fake implementation gives the output shapes, so ``torch.export``
+programs and CUDA graphs run the kernels as eager code does.
+
 There is no fallback between kernel and plain version, nor between the
 bf16 and the f32 kernels: a CUDA tensor the kernels cannot take raises.
 """
@@ -57,6 +64,7 @@ __all__ = ["fused_gabor_sqmod_lowpass", "fused_reference",
            "fused_forward_cuda", "fused_forward_saving_cuda",
            "fused_backward_cuda", "fused_forward_bf16_cuda",
            "fused_forward_saving_bf16_cuda", "fused_backward_bf16_cuda",
+           "fused_fwd_op", "fused_fwd_save_op", "fused_bwd_op",
            "KERNELS", "launch_counts", "reset_launch_counts",
            "lowpass_frames_out", "check_geometry"]
 
@@ -389,21 +397,102 @@ def reset_launch_counts() -> None:
 reset_launch_counts()
 
 
+# --------------------------------------------------- torch.library ops
+# The three kernels as custom ops of the ``leaf_tpu_torch`` namespace, so
+# that eager code, ``torch.export`` programs and CUDA-graph captures take
+# one route: the CUDA implementation launches the f32 or the bf16 kernel
+# by dtype (its wrapper counts the launch), every other device runs the
+# plain version, and the fake implementation gives ``torch.export`` the
+# output shapes without touching data.
+
+def _op(name: str, schema: str):
+    return torch.library.custom_op(f"leaf_tpu_torch::{name}",
+                                   mutates_args=(), schema=schema)
+
+
+@_op("fused_fwd", "(Tensor x, Tensor gabor, Tensor windows) -> Tensor")
+def fused_fwd_op(x, gabor, windows):
+    """The primal forward: (B, n_frames, F) float32."""
+    return fused_reference(x, gabor, windows)
+
+
+@_op("fused_fwd_save",
+     "(Tensor x, Tensor gabor, Tensor windows) -> (Tensor, Tensor)")
+def fused_fwd_save_op(x, gabor, windows):
+    """The residual-saving forward: (out, OUT (B, 2F, T) at x's dtype)."""
+    return fused_forward_saving_reference(x, gabor, windows)
+
+
+@_op("fused_bwd", "(Tensor x, Tensor conv, Tensor windows, Tensor d_out) "
+     "-> (Tensor, Tensor)")
+def fused_bwd_op(x, conv, windows, d_out):
+    """The backward: (d_bank (401, 2F) at x's dtype, d_windows (F, 401))."""
+    return fused_backward_reference(x, conv, windows, d_out)
+
+
+@fused_fwd_op.register_kernel("cuda")
+def _fused_fwd_kernel(x, gabor, windows):
+    fwd = (fused_forward_bf16_cuda if x.dtype == torch.bfloat16
+           else fused_forward_cuda)
+    return fwd(x.contiguous(), gabor.contiguous(), windows.contiguous())
+
+
+@fused_fwd_save_op.register_kernel("cuda")
+def _fused_fwd_save_kernel(x, gabor, windows):
+    fwd = (fused_forward_saving_bf16_cuda if x.dtype == torch.bfloat16
+           else fused_forward_saving_cuda)
+    return fwd(x.contiguous(), gabor.contiguous(), windows.contiguous())
+
+
+@fused_bwd_op.register_kernel("cuda")
+def _fused_bwd_kernel(x, conv, windows, d_out):
+    bwd = (fused_backward_bf16_cuda if x.dtype == torch.bfloat16
+           else fused_backward_cuda)
+    return bwd(x.contiguous(), conv.contiguous(), windows.contiguous(),
+               d_out.contiguous())
+
+
+# The fake outputs carry the strides of the implementation that runs:
+# the kernels write contiguous (B, n_frames, F) and (401, 2F) arrays; the
+# plain versions return transposes of their convolutions' outputs (kept
+# as they are: a copy would change the order of later float sums).
+
+def _fake_out(x, f: int):
+    b, t_len = x.shape
+    n = lowpass_frames_out(t_len, _STRIDE, _KMAX, _PAD)
+    if x.device.type == "cuda":
+        return x.new_empty((b, n, f), dtype=torch.float32)
+    return x.new_empty((b, f, n), dtype=torch.float32).transpose(1, 2)
+
+
+@fused_fwd_op.register_fake
+def _(x, gabor, windows):
+    return _fake_out(x, gabor.shape[1] // 2)
+
+
+@fused_fwd_save_op.register_fake
+def _(x, gabor, windows):
+    f = gabor.shape[1] // 2
+    return _fake_out(x, f), x.new_empty((x.shape[0], 2 * f, x.shape[1]))
+
+
+@fused_bwd_op.register_fake
+def _(x, conv, windows, d_out):
+    f = windows.shape[0]
+    d_bank = (x.new_empty((_KMAX, 2 * f)) if x.device.type == "cuda"
+              else x.new_empty((2 * f, _KMAX)).T)
+    return d_bank, windows.new_empty((f, _KMAX), dtype=torch.float32)
+
+
 class _FusedForward(torch.autograd.Function):
-    """The op under autograd: the residual-saving forward, then the
-    backward, as kernels on a CUDA tensor (the bf16 ones for bf16
-    operands) and plain versions on a CPU one. The waveform gradient is
+    """The op under autograd: the residual-saving forward op, then the
+    backward op (kernels on a CUDA tensor, the bf16 ones for bf16
+    operands; plain versions on a CPU one). The waveform gradient is
     zero, not absent (the JAX op's contract)."""
 
     @staticmethod
     def forward(ctx, x, gabor, windows):
-        if x.is_cuda:
-            x, gabor, windows = (t.contiguous() for t in (x, gabor, windows))
-            fwd = (fused_forward_saving_bf16_cuda
-                   if x.dtype == torch.bfloat16 else fused_forward_saving_cuda)
-            out, conv = fwd(x, gabor, windows)
-        else:
-            out, conv = fused_forward_saving_reference(x, gabor, windows)
+        out, conv = fused_fwd_save_op(x, gabor, windows)
         ctx.save_for_backward(x, conv, windows)
         return out
 
@@ -414,12 +503,7 @@ class _FusedForward(torch.autograd.Function):
         d_x = torch.zeros_like(x) if need_x else None
         if not (need_bank or need_win):
             return d_x, None, None
-        if d_out.is_cuda:
-            bwd = (fused_backward_bf16_cuda if x.dtype == torch.bfloat16
-                   else fused_backward_cuda)
-            d_bank, d_win = bwd(x, conv, windows, d_out.contiguous())
-        else:
-            d_bank, d_win = fused_backward_reference(x, conv, windows, d_out)
+        d_bank, d_win = fused_bwd_op(x, conv, windows, d_out)
         return (d_x, d_bank if need_bank else None,
                 d_win if need_win else None)
 
@@ -437,14 +521,11 @@ def fused_gabor_sqmod_lowpass(x: torch.Tensor, gabor: torch.Tensor,
 
     Returns (B, n_frames, F) float32, n_frames = (T+pl+pr−K)//stride + 1.
     When a gradient is wanted the residual-saving forward runs (and the
-    backward later); otherwise the primal forward.
+    backward later); otherwise the primal forward. Each goes through its
+    ``torch.ops.leaf_tpu_torch`` op.
     """
     check_geometry(gabor, stride, pad)
     if torch.is_grad_enabled() and (x.requires_grad or gabor.requires_grad
                                     or windows.requires_grad):
         return _FusedForward.apply(x, gabor, windows)
-    if x.is_cuda:
-        fwd = (fused_forward_bf16_cuda if x.dtype == torch.bfloat16
-               else fused_forward_cuda)
-        return fwd(x.contiguous(), gabor.contiguous(), windows.contiguous())
-    return fused_reference(x, gabor, windows)
+    return fused_fwd_op(x, gabor, windows)

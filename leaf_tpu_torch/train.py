@@ -17,13 +17,21 @@ are read once per epoch. Kept as in the JAX ``train.py``:
 - the val set padded to the device multiple with zero-weight rows and the
   weighted eval step;
 - SIGTERM: finish the step, save ``epoch_NNN_preempt`` with the schedule
-  clock rewound to the epoch start and meta epoch e−1, exit 0.
+  clock rewound to the epoch start and meta epoch e−1, exit 0;
+- ``--steps_per_call K`` feeds K-stacked batches to
+  ``make_train_multistep`` (one CUDA graph of K steps on the card), the
+  epoch's remainder of < K batches to the single step;
+- ``--wandb_watch_model`` logs the step's gradient and parameter norms and
+  ``--watch_histograms`` also their histograms, at log steps (both force
+  K = 1: they are per-step).
 
 The epoch line ends with the fused frontend kernels' launch counts since
 the process started (``kernels {"fwd": .., "fwd_save": .., "bwd": ..,
 "fwd_bf16": .., "fwd_save_bf16": .., "bwd_bf16": ..}``: the primal
 forward, the residual-saving forward and the backward, in f32 and in
-bf16), so a run shows that its steps went through the kernels.
+bf16), so a run shows that its steps went through the kernels. Under
+``--steps_per_call K`` the launches of the graph's replays are added to
+them (a replay does not pass through the counting wrappers).
 ``--bf16`` sets ``compute_dtype: bfloat16`` in the cfg's ``frontend`` and
 ``model`` sections (saved so in ``hparams.json``), as the JAX
 ``train.py`` does: bf16 compute with f32 parameters. Its ex/s is the
@@ -58,13 +66,15 @@ from leaf_tpu_torch.data.device_augment import (leaf_device_augment,
 from leaf_tpu_torch.models import Classifier
 from leaf_tpu_torch.ops.fused_frontend import launch_counts
 from leaf_tpu_torch.training import (TrainState, get_config, make_eval_step,
-                                     make_train_step, optimization_helper,
+                                     make_train_multistep, make_train_step,
+                                     optimization_helper,
                                      pad_batch_to_multiple, rewind_steps,
-                                     waveform_from_wire)
+                                     set_group_lr, waveform_from_wire)
 from leaf_tpu_torch.training.bn_recalibrate import recalibrate_batch_stats
 from leaf_tpu_torch.training.checkpoint import (latest_checkpoint,
                                                 load_checkpoint,
                                                 save_checkpoint, save_hparams)
+from leaf_tpu_torch.training.histograms import histogram_tree
 from leaf_tpu_torch.training.loggers import (RateTracker, TrainLogger,
                                              profile_trace)
 from leaf_tpu_torch.training.metrics import calculate_mAP
@@ -118,9 +128,11 @@ def parse_args(argv=None):
     p.add_argument("--wandb_tags", type=str, default=None)
     p.add_argument("--wandb_watch_model", "--watch_model",
                    dest="watch_model", action="store_true",
-                   help="not ported yet")
+                   help="log global and per-child gradient/parameter L2 "
+                        "norms at log steps (forces --steps_per_call 1)")
     p.add_argument("--watch_histograms", action="store_true",
-                   help="not ported yet")
+                   help="also log on-device parameter/gradient histograms "
+                        "at log steps (implies --wandb_watch_model)")
     p.add_argument("--wire_dtype", choices=("auto", "float32", "int16"),
                    default="auto",
                    help="host→device waveform format. 'int16' ships raw "
@@ -131,7 +143,9 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="run the model in bfloat16 compute (fp32 params)")
     p.add_argument("--steps_per_call", type=int, default=1,
-                   help="values above 1 are not ported yet")
+                   help="K train steps per call: on the card one CUDA graph "
+                        "of K steps (make_train_multistep), replayed; the "
+                        "epoch's remainder runs as single steps")
     p.add_argument("--bn_recalibrate", type=int, default=0, metavar="N",
                    help="before each validation pass, re-estimate the "
                         "BatchNorm running statistics from N train batches "
@@ -149,10 +163,6 @@ def _refuse_unported(args, cfg) -> None:
     """Flags whose modules are later slices raise here, naming the
     ROADMAP item (Queue 1) that ports them."""
     unported = [
-        (args.steps_per_call > 1, "--steps_per_call > 1",
-         "item 6 (multistep)"),
-        (args.watch_model, "--wandb_watch_model", "item 6 (watching)"),
-        (args.watch_histograms, "--watch_histograms", "item 6 (watching)"),
         (args.use_packed_dataset, "--use_packed_dataset",
          "item 3's remainder (packed shards)"),
         (args.gcs_bucket_name, "--gcs_bucket_name",
@@ -251,12 +261,21 @@ def train(args) -> float:
                  f"val batches: {len(val_loader)} | wire: {wire}")
 
     # ------------------------------------------------------------ model
+    if args.watch_histograms:
+        args.watch_model = True
+    k_fuse = max(1, args.steps_per_call)
+    if k_fuse > 1 and args.watch_model:
+        logger.print("note: --steps_per_call forced to 1 — "
+                     "--wandb_watch_model/--watch_histograms log per-step")
+        k_fuse = 1
     model = Classifier(cfg, device=device,
                        generator=torch.Generator().manual_seed(
                            args.random_seed))
+    # a CUDA graph of K steps holds a capturable optimizer (device lr)
     optimizer, scheduler, plateau, _ = optimization_helper(
         cfg, model.parameters(), num_tr_steps_per_epoch=steps_per_epoch,
-        num_epochs=args.epochs)
+        num_epochs=args.epochs,
+        capturable=k_fuse > 1 and device.type == "cuda")
     state = TrainState(model, optimizer, scheduler)
     n_params = sum(p.numel() for p in model.parameters())
     logger.print(f"model params: {n_params:,}")
@@ -276,8 +295,14 @@ def train(args) -> float:
 
     host_aug = args.high_aug or args.host_aug
     tr_augment = None if host_aug else leaf_device_augment
-    train_step = make_train_step(mode, mixup_alpha=1.0 if use_mixup else None,
-                                 augment_fn=tr_augment)
+    mixup_alpha = 1.0 if use_mixup else None
+    train_step = make_train_step(mode, mixup_alpha=mixup_alpha,
+                                 augment_fn=tr_augment,
+                                 watch_norms=args.watch_model,
+                                 watch_histograms=args.watch_histograms)
+    train_multistep = (make_train_multistep(k_fuse, mode, mixup_alpha,
+                                            tr_augment)
+                       if k_fuse > 1 else None)
     eval_step = make_eval_step(mode)
     step_gen = torch.Generator(device=device).manual_seed(args.random_seed + 1)
     place = pinned_placer(device)
@@ -306,17 +331,44 @@ def train(args) -> float:
         old_handler = None
     try:
         return _run_epochs(args, start_epoch, state, plateau, train_loader,
-                           val_loader, train_step, eval_step, step_gen,
-                           place, tr_augment, logger, preempted)
+                           val_loader, train_step, train_multistep,
+                           eval_step, step_gen, place, tr_augment, logger,
+                           preempted)
     finally:
         if old_handler is not None:
             signal.signal(signal.SIGTERM, old_handler)
         logger.close()
 
 
+def _group_feed(batches, k: int):
+    """("multi", [k batches]) per k host batches, then ("single", batch)
+    for each of the epoch's remainder; all singles for k = 1."""
+    if k == 1:
+        yield from (("single", b) for b in batches)
+        return
+    buf = []
+    for b in batches:
+        buf.append(b)
+        if len(buf) == k:
+            yield "multi", buf
+            buf = []
+    for b in buf:
+        yield "single", b
+
+
+def _kernel_counts(train_multistep) -> dict:
+    """The kernels' launches: the wrappers' counts, plus the launches of
+    the multistep graph's replays."""
+    counts = launch_counts()
+    if train_multistep is not None:
+        for name, n in train_multistep.graph_launch_counts().items():
+            counts[name] += n
+    return counts
+
+
 def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
-                train_step, eval_step, step_gen, place, tr_augment, logger,
-                preempted) -> float:
+                train_step, train_multistep, eval_step, step_gen, place,
+                tr_augment, logger, preempted) -> float:
     """The epoch loop: train, BN recalibration, validation, checkpoint."""
     cfg = state.model.cfg
     multiclass = cfg["model"]["type"] == "multiclass"
@@ -324,31 +376,64 @@ def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
     device = next(state.model.parameters()).device
     steps_per_epoch = len(train_loader)
     best_val, metric_name = -1.0, "val_acc" if multiclass else "val_mAP"
+    k_fuse = 1 if train_multistep is None else train_multistep.k
+
+    def place_any(item):
+        tag, payload = item
+        if tag == "single":
+            return tag, place(payload)
+        return tag, place((np.stack([np.asarray(b[0]) for b in payload]),
+                           np.stack([np.asarray(b[1]) for b in payload])))
+
     for epoch in range(start_epoch, args.epochs):
         train_loader.set_epoch(epoch)
         tracker = RateTracker()
         ep_loss = ep_correct = ep_count = None
         t0 = time.time()
         steps_done = 0
-        for xb, yb in prefetch_to_device(iter(train_loader), place):
-            metrics = train_step(state, xb, yb, step_gen)
-            bi = steps_done
-            steps_done += 1
+        for tag, (xb, yb) in prefetch_to_device(
+                _group_feed(iter(train_loader), k_fuse), place_any):
+            if tag == "multi":
+                metrics = train_multistep(state, xb, yb, step_gen)
+                n_new = xb.shape[0]
+                loss_sum = metrics["loss"] * n_new  # the mean of K steps
+                clips = xb.shape[0] * xb.shape[1]
+            else:
+                metrics = train_step(state, xb, yb, step_gen)
+                n_new, loss_sum, clips = 1, metrics["loss"], xb.shape[0]
+            prev_steps = steps_done
+            steps_done += n_new
+            bi = steps_done - 1  # the last step this call completed
             # accumulate on the device — no per-step host sync
             if ep_loss is None:
-                ep_loss = metrics["loss"]
+                ep_loss = loss_sum
                 ep_correct = metrics["correct"]
                 ep_count = metrics["count"]
             else:
-                ep_loss = ep_loss + metrics["loss"]
+                ep_loss = ep_loss + loss_sum
                 ep_correct = ep_correct + metrics["correct"]
                 ep_count = ep_count + metrics["count"]
-            tracker.add(xb.shape[0])
-            if bi % args.log_steps == 0:
+            tracker.add(clips)
+            # under K steps per call: did this call cross a multiple of
+            # log_steps?
+            if prev_steps == 0 or bi // args.log_steps > (
+                    (prev_steps - 1) // args.log_steps):
                 logger.print(
                     f"epoch {epoch} step {bi}/{steps_per_epoch} "
                     f"rate {tracker.rate():.1f} ex/s "
                     f"global {tracker.global_rate():.1f} ex/s")
+                at = epoch * steps_per_epoch + bi
+                if args.watch_model:
+                    logger.log_scalars({f"watch/{k}": float(v)
+                                        for k, v in metrics.items()
+                                        if "norm" in k}, step=at)
+                if args.watch_histograms:
+                    hists = histogram_tree(
+                        dict(state.model.named_parameters()),
+                        prefix="params/")
+                    hists.update(histogram_tree(metrics["_grads"],
+                                                prefix="grads/"))
+                    logger.log_histograms(hists, step=at)
             if preempted:
                 # Rewind the schedule clock to the epoch boundary: the
                 # resumed run redoes this epoch from its start, so the
@@ -432,7 +517,7 @@ def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
             f"epoch {epoch}: tr_loss {tr_loss:.4f} tr_acc {tr_acc:.4f} "
             f"val_loss {val_loss:.4f} {metric_name} {val_metric:.4f} "
             f"({dt:.1f}s, {train_rate:.1f} ex/s) "
-            f"kernels {json.dumps(launch_counts())}")
+            f"kernels {json.dumps(_kernel_counts(train_multistep))}")
         logger.log_scalars(
             {"train/loss": tr_loss, "train/acc": tr_acc,
              "val/loss": val_loss, f"val/{metric_name}": val_metric,
@@ -447,7 +532,7 @@ def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
         if plateau is not None:
             new_lr = plateau.step(val_metric)
             for group in state.optimizer.param_groups:
-                group["lr"] = new_lr
+                set_group_lr(group, new_lr)
         best_val = max(best_val, val_metric)
     logger.print(f"done. best {metric_name}: {best_val:.4f}")
     return best_val

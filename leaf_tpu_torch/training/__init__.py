@@ -1,6 +1,7 @@
 """Training stack of the port: config, optimizer and schedules, train
-state, the train and eval steps, checkpoints, BN recalibration, metrics
-and loggers (``leaf_tpu.training``'s counterparts)."""
+state, the train steps (one, or K per call) and the eval step,
+checkpoints, BN recalibration, metrics, histograms and loggers
+(``leaf_tpu.training``'s counterparts)."""
 
 from leaf_tpu_torch.training.config import get_config  # noqa: F401
 
@@ -13,11 +14,13 @@ from leaf_tpu_torch.training.optim import (  # noqa: F401
 from leaf_tpu_torch.training.state import (  # noqa: F401
     TrainState,
     rewind_steps,
+    set_group_lr,
 )
 from leaf_tpu_torch.training.steps import (  # noqa: F401
     bce_logits_loss,
     cross_entropy_loss,
     make_eval_step,
+    make_train_multistep,
     make_train_step,
     mixup,
     pad_batch_to_multiple,
@@ -32,7 +35,9 @@ __all__ = [
     "warmup_cosine_schedule",
     "TrainState",
     "rewind_steps",
+    "set_group_lr",
     "make_train_step",
+    "make_train_multistep",
     "make_eval_step",
     "mixup",
     "cross_entropy_loss",

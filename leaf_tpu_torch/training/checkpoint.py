@@ -27,7 +27,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from leaf_tpu_torch.training.state import TrainState, rewind_steps
+from leaf_tpu_torch.training.state import (TrainState, rewind_steps,
+                                           set_group_lr)
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_checkpoint",
            "best_checkpoint", "save_hparams", "load_hparams"]
@@ -100,7 +101,10 @@ def load_checkpoint(path: str, state: TrainState, with_opt: bool = True
     state.model.load_state_dict(blob["model"])
     state.step = int(blob["step"])
     if with_opt:
+        live = [(g["lr"], g.get("capturable")) for g in
+                state.optimizer.param_groups]
         state.optimizer.load_state_dict(blob["optimizer"])
+        _keep_capture_setup(state.optimizer, live)
         if state.scheduler is not None and blob["scheduler"] is not None:
             state.scheduler.load_state_dict(blob["scheduler"])
             # the saved lr came from the saving run's schedule; a resumed
@@ -108,6 +112,26 @@ def load_checkpoint(path: str, state: TrainState, with_opt: bool = True
             # restored clock from this run's schedule, as optax does
             rewind_steps(state, 0)
     return state, _read_meta(path)
+
+
+def _keep_capture_setup(optimizer: torch.optim.Optimizer, live) -> None:
+    """After ``load_state_dict``: each group keeps this run's lr object (a
+    device tensor under ``capturable``, else a float) with the loaded
+    value, and this run's ``capturable`` flag; Adam's step counts move to
+    where that flag keeps them (the device, or the CPU). So a checkpoint
+    of a ``--steps_per_call 1`` run resumes under K > 1 and back."""
+    for group, (lr, capturable) in zip(optimizer.param_groups, live):
+        value = float(group["lr"])
+        group["lr"] = lr
+        set_group_lr(group, value)
+        if capturable is None:
+            continue
+        group["capturable"] = capturable
+        for p in group["params"]:
+            step = optimizer.state.get(p, {}).get("step")
+            if torch.is_tensor(step):
+                optimizer.state[p]["step"] = step.to(
+                    p.device if capturable else "cpu", torch.float32)
 
 
 def latest_checkpoint(exp_dir: str) -> Optional[str]:

@@ -4,7 +4,8 @@ profiler traces.
 ``leaf_tpu.training.loggers`` in the port: ``RateTracker``
 (``xm.RateTracker``'s examples/s), ``TrainLogger`` (stdout, and
 TensorBoard through tensorboardX and wandb where they are installed —
-both imported only when a logger asks for them), and ``profile_trace``
+both imported only when a logger asks for them — with scalars and the
+watched histograms), and ``profile_trace``
 around ``torch.profiler``, which writes a Chrome trace.
 """
 
@@ -91,6 +92,34 @@ class TrainLogger:
                 self.tb.add_scalar(k, v, step)
         if self.wandb is not None:
             self.wandb.log(scalars, step=step)
+
+    def log_histograms(self, hists: dict, step: int) -> None:
+        """Write per-tensor histograms (``wandb.watch(log="all")``):
+        ``hists`` maps tag → ``(counts, lo, hi, sum, sum_sq)`` as
+        ``training.histograms.histogram_tree`` gives them on the device;
+        only these cross to the host, here."""
+        if not self.is_master or (self.tb is None and self.wandb is None):
+            return
+        import numpy as np
+        for tag, (counts, lo, hi, s, ssq) in hists.items():
+            counts = counts.cpu().numpy()
+            lo, hi = float(lo), float(hi)
+            if not hi > lo:
+                # a constant tensor: widen by a RELATIVE epsilon (an
+                # absolute one underflows against |lo| ≳ 1e4, and equal
+                # edges are malformed buckets to tensorboard and wandb)
+                hi = lo + max(abs(lo), 1.0) * 1e-6
+            edges = np.linspace(lo, hi, counts.shape[0] + 1)
+            if self.tb is not None:
+                self.tb.add_histogram_raw(
+                    tag, min=lo, max=hi, num=int(counts.sum()),
+                    sum=float(s), sum_squares=float(ssq),
+                    bucket_limits=edges[1:].tolist(),
+                    bucket_counts=counts.tolist(), global_step=step)
+            if self.wandb is not None:
+                self.wandb.log(
+                    {tag: self.wandb.Histogram(
+                        np_histogram=(counts, edges))}, step=step)
 
     def close(self) -> None:
         if self.tb is not None:

@@ -100,13 +100,21 @@ class ReduceLROnPlateau:
 
 def _base_optimizer(name: str, cfg_opt: dict,
                     params: Iterable[torch.nn.Parameter],
-                    lr: float) -> torch.optim.Optimizer:
+                    lr: float, capturable: bool) -> torch.optim.Optimizer:
     wd = float(cfg_opt.get("weight_decay", 0.0))
+    params = list(params)
+    if capturable:
+        # the lr as a 0-d tensor on the parameters' device, which a CUDA
+        # graph reads at replay (a float would be captured as a constant)
+        lr = torch.tensor(lr, device=params[0].device)
     if name == "Adam":
         # optax.scale_by_adam defaults: b1 0.9, b2 0.999, eps 1e-8
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=wd)
+                                weight_decay=wd, capturable=capturable)
     if name == "SGD":
+        if capturable:
+            raise ValueError("capturable=True takes Adam (torch's SGD "
+                             "reads a tensor lr on the host)")
         return torch.optim.SGD(params, lr=lr,
                                momentum=float(cfg_opt.get("momentum", 0.9)),
                                nesterov=bool(cfg_opt.get("nesterov", True)),
@@ -119,6 +127,7 @@ def optimization_helper(
     params: Iterable[torch.nn.Parameter],
     num_tr_steps_per_epoch: Optional[int] = None,
     num_epochs: Optional[int] = None,
+    capturable: bool = False,
 ) -> Tuple[torch.optim.Optimizer,
            Optional[torch.optim.lr_scheduler.LambdaLR],
            Optional[ReduceLROnPlateau], str]:
@@ -129,11 +138,17 @@ def optimization_helper(
     batch, after ``optimizer.step()``; 'reduce' returns a controller whose
     ``step(metric)`` gives the lr for every parameter group, once per
     epoch.
+
+    ``capturable=True`` builds the optimizer that a CUDA graph of train
+    steps can hold (``make_train_multistep`` on the card): Adam with
+    ``capturable=True`` (its step counts on the device) and each group's
+    lr a 0-d device tensor that the schedule and the plateau controller
+    write in place (``state.set_group_lr``).
     """
     cfg_opt = cfg["opt"]
     name = cfg_opt.get("optimizer", "Adam")
     lr = float(cfg_opt.get("lr", 1e-3))
-    optimizer = _base_optimizer(name, cfg_opt, params, lr)
+    optimizer = _base_optimizer(name, cfg_opt, params, lr, capturable)
 
     scheduler_name = cfg_opt.get("scheduler", "reduce")
     if scheduler_name == "warmupcosine":
@@ -158,7 +173,10 @@ def optimization_helper(
         return optimizer, None, controller, scheduler_name
     else:
         raise ValueError(f"Unsupported scheduler {scheduler_name}")
-    # LambdaLR multiplies the base lr by the factor it returns
+    # LambdaLR multiplies the base lr by the factor it returns; a float
+    # base keeps its per-step lr writes free of host syncs under a tensor lr
+    for group in optimizer.param_groups:
+        group["initial_lr"] = lr
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda step: schedule(step) / lr if lr else 0.0)
     return optimizer, scheduler, None, scheduler_name

@@ -16,7 +16,36 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["TrainState", "rewind_steps"]
+__all__ = ["TrainState", "rewind_steps", "set_group_lr", "schedule_lrs",
+           "set_schedule_clock"]
+
+
+def set_group_lr(group: dict, lr: float) -> None:
+    """Write ``lr`` into an optimizer param group: in place where the lr
+    is a tensor (a capturable optimizer's, which a CUDA graph reads), as a
+    float otherwise."""
+    if torch.is_tensor(group["lr"]):
+        group["lr"].fill_(lr)
+    else:
+        group["lr"] = lr
+
+
+def schedule_lrs(sched: torch.optim.lr_scheduler.LambdaLR,
+                 clock: int) -> list:
+    """Each param group's lr at schedule step ``clock``."""
+    return [base * fn(clock) for base, fn in zip(sched.base_lrs,
+                                                 sched.lr_lambdas)]
+
+
+def set_schedule_clock(sched: torch.optim.lr_scheduler.LambdaLR,
+                       clock: int) -> None:
+    """Move a per-batch ``LambdaLR`` to step ``clock`` (never below 0) and
+    write that step's lr into its optimizer's groups."""
+    sched.last_epoch = max(clock, 0)
+    lrs = schedule_lrs(sched, sched.last_epoch)
+    for group, lr in zip(sched.optimizer.param_groups, lrs):
+        set_group_lr(group, lr)
+    sched._last_lr = lrs
 
 
 @dataclass
@@ -56,12 +85,6 @@ def rewind_steps(state: TrainState, n: int) -> TrainState:
             step.copy_(torch.clamp(step - n, min=0))
         elif step is not None:
             param_state["step"] = max(step - n, 0)
-    sched = state.scheduler
-    if sched is not None:
-        sched.last_epoch = max(sched.last_epoch - n, 0)
-        lrs = [base * fn(sched.last_epoch)
-               for base, fn in zip(sched.base_lrs, sched.lr_lambdas)]
-        for group, lr in zip(state.optimizer.param_groups, lrs):
-            group["lr"] = lr
-        sched._last_lr = lrs
+    if state.scheduler is not None:
+        set_schedule_clock(state.scheduler, state.scheduler.last_epoch - n)
     return state

@@ -27,11 +27,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from leaf_tpu_torch.training.state import TrainState
+from leaf_tpu_torch.training.state import (TrainState, schedule_lrs,
+                                           set_schedule_clock)
 
 __all__ = ["softmax_cross_entropy", "cross_entropy_loss", "bce_logits_loss",
-           "mixup",
-           "make_train_step", "make_eval_step", "waveform_from_wire",
+           "mixup", "make_train_step", "make_train_multistep",
+           "TrainMultistep", "make_eval_step", "waveform_from_wire",
            "pad_batch_to_multiple"]
 
 
@@ -94,23 +95,17 @@ def mixup(generator: Optional[torch.Generator], inputs: torch.Tensor,
     return mixed_x, targets, targets[perm], lam
 
 
-def make_train_step(model_type: str = "multiclass",
-                    mixup_alpha: Optional[float] = None,
-                    augment_fn: Optional[Callable] = None) -> Callable:
-    """Build the train step: (state, x, y, generator) → metrics.
-
-    It updates ``state`` in place (model parameters and BatchNorm stats,
-    optimizer, schedule, ``state.step``) and returns ``{'loss',
-    'correct', 'count'}`` as device scalars. ``correct`` is 0 under
-    multilabel, as in the JAX package. ``augment_fn(generator, x)`` runs
-    first (e.g. ``leaf_tpu_torch.data.leaf_device_augment``).
-    """
+def _train_step_body(model_type: str, mixup_alpha: Optional[float],
+                     augment_fn: Optional[Callable]) -> Callable:
+    """(state, x, y, generator) → metrics: augment, forward, loss and
+    backward, with the gradients left in ``.grad`` and no update. Shared
+    by ``make_train_step`` and the steps a ``make_train_multistep`` graph
+    captures."""
     multilabel = model_type == "multilabel"
     loss_inner = bce_logits_loss if multilabel else cross_entropy_loss
 
-    def step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
-             generator: Optional[torch.Generator] = None
-             ) -> Dict[str, torch.Tensor]:
+    def body(state: TrainState, x: torch.Tensor, y: torch.Tensor,
+             generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         model = state.model.train()
         x = waveform_from_wire(x)
         if augment_fn is not None:
@@ -131,7 +126,6 @@ def make_train_step(model_type: str = "multiclass",
                               * (1.0 - lam))
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        state.apply_gradients()
         if multilabel:
             correct = torch.zeros((), dtype=torch.int32, device=x.device)
         else:
@@ -140,7 +134,209 @@ def make_train_step(model_type: str = "multiclass",
                 "count": torch.full((), x.shape[0], dtype=torch.int32,
                                     device=x.device)}
 
+    return body
+
+
+def _global_norm(tensors) -> torch.Tensor:
+    """√(Σ‖t‖²) over ``tensors`` (optax.global_norm), in f32."""
+    return torch.sqrt(sum(torch.sum(t.detach().float() ** 2)
+                          for t in tensors))
+
+
+def make_train_step(model_type: str = "multiclass",
+                    mixup_alpha: Optional[float] = None,
+                    augment_fn: Optional[Callable] = None,
+                    watch_norms: bool = False,
+                    watch_histograms: bool = False) -> Callable:
+    """Build the train step: (state, x, y, generator) → metrics.
+
+    It updates ``state`` in place (model parameters and BatchNorm stats,
+    optimizer, schedule, ``state.step``) and returns ``{'loss',
+    'correct', 'count'}`` as device scalars. ``correct`` is 0 under
+    multilabel, as in the JAX package. ``augment_fn(generator, x)`` runs
+    first (e.g. ``leaf_tpu_torch.data.leaf_device_augment``).
+
+    ``watch_norms`` adds ``grad_norm`` and ``param_norm`` (global L2
+    norms; the parameters after the update) and the same per top-level
+    child (``grad_norm/features``, ``param_norm/model``, ...), the JAX
+    step's ``wandb.watch`` scalars. ``watch_histograms`` also stashes the
+    gradients by parameter name in ``metrics["_grads"]`` for
+    ``training.histograms.histogram_tree`` at log steps.
+    """
+    body = _train_step_body(model_type, mixup_alpha, augment_fn)
+
+    def step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        metrics = body(state, x, y, generator)
+        state.apply_gradients()
+        if watch_norms or watch_histograms:
+            named = [(n, p) for n, p in state.model.named_parameters()
+                     if p.grad is not None]
+        if watch_norms:
+            metrics["grad_norm"] = _global_norm(p.grad for _, p in named)
+            metrics["param_norm"] = _global_norm(p for _, p in named)
+            for top in dict.fromkeys(n.split(".")[0] for n, _ in named):
+                sub = [p for n, p in named if n.split(".")[0] == top]
+                metrics[f"grad_norm/{top}"] = _global_norm(p.grad
+                                                           for p in sub)
+                metrics[f"param_norm/{top}"] = _global_norm(sub)
+        if watch_histograms:
+            metrics["_grads"] = {n: p.grad for n, p in named}
+        return metrics
+
     return step
+
+
+def make_train_multistep(steps_per_call: int,
+                         model_type: str = "multiclass",
+                         mixup_alpha: Optional[float] = None,
+                         augment_fn: Optional[Callable] = None
+                         ) -> "TrainMultistep":
+    """K train steps per call: (state, xs (K, B, T), ys (K, B[, C]),
+    generator) → {'loss' (mean over the K steps), 'correct', 'count'
+    (sums)} as device scalars, the numerics of K ``make_train_step`` calls.
+
+    The counterpart of the JAX package's ``lax.scan`` of K steps. On a
+    CUDA device it is one CUDA graph of K steps (``TrainMultistep``); on
+    the CPU the K steps run one after another.
+    """
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be ≥ 1: {steps_per_call}")
+    return TrainMultistep(steps_per_call, _train_step_body(
+        model_type, mixup_alpha, augment_fn))
+
+
+class TrainMultistep:
+    """K train steps per call; see ``make_train_multistep``.
+
+    On CUDA inputs the first call runs its K steps eagerly on a side
+    stream (they are the graph's warm-up: the optimizer's state exists
+    after them) and then captures K steps into one CUDA graph for the
+    shapes and dtypes it saw, with the step's ``torch.Generator``
+    registered so that every replay draws fresh numbers; the capture runs
+    nothing. Each later call copies xs and ys into the graph's static
+    buffers, writes the K scheduled lrs into a (K, groups) buffer that
+    captured step k copies into the groups' lr tensors, replays, and
+    moves the schedule and ``state.step`` on by K on the host. The
+    optimizer comes from ``optimization_helper(..., capturable=True)``. A
+    capture that fails raises: there is no fallback to eager steps.
+
+    The kernel wrappers do not count a replay's launches. ``per_replay``
+    holds the launches one replay makes (by ``launch_counts`` name),
+    ``replays`` the replays so far, and ``graph_launch_counts()`` their
+    product; ``pool_bytes`` is the size of the graph's private memory
+    pool (the K steps' activations, reused from step to step).
+    """
+
+    def __init__(self, steps_per_call: int, body: Callable):
+        self.k = steps_per_call
+        self._body = body
+        self._graph = None
+        self._signature = None
+        self.replays = 0
+        self.per_replay: Dict[str, int] = {}
+        self.pool_bytes = 0
+
+    def graph_launch_counts(self) -> Dict[str, int]:
+        return {name: n * self.replays for name, n in self.per_replay.items()}
+
+    def __call__(self, state: TrainState, xs: torch.Tensor, ys: torch.Tensor,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Dict[str, torch.Tensor]:
+        if xs.shape[0] != self.k or ys.shape[0] != self.k:
+            raise ValueError(f"expected {self.k} stacked batches, got xs "
+                             f"{tuple(xs.shape)}, ys {tuple(ys.shape)}")
+        if not xs.is_cuda:
+            return self._eager(state, xs, ys, generator)
+        signature = (tuple(xs.shape), xs.dtype, tuple(ys.shape), ys.dtype,
+                     id(state.model), id(state.optimizer), id(generator))
+        if self._graph is None:
+            side = torch.cuda.Stream(xs.device)
+            side.wait_stream(torch.cuda.current_stream(xs.device))
+            with torch.cuda.stream(side):
+                metrics = self._eager(state, xs, ys, generator)
+            torch.cuda.current_stream(xs.device).wait_stream(side)
+            self._capture(state, xs, ys, generator)
+            self._signature = signature
+            return metrics
+        if signature != self._signature:
+            raise ValueError("the CUDA graph was captured for another state, "
+                             "generator or batch shape; make a new "
+                             "make_train_multistep for this one")
+        return self._replay(state, xs, ys)
+
+    def _eager(self, state, xs, ys, generator):
+        out = []
+        for k in range(self.k):
+            out.append(self._body(state, xs[k], ys[k], generator))
+            state.apply_gradients()
+        return {"loss": torch.stack([m["loss"] for m in out]).mean(),
+                "correct": sum(m["correct"] for m in out),
+                "count": sum(m["count"] for m in out)}
+
+    def _capture(self, state, xs, ys, generator):
+        from leaf_tpu_torch.ops.fused_frontend import KERNELS, launch_counts
+        groups = state.optimizer.param_groups
+        if not all(g.get("capturable") and torch.is_tensor(g["lr"])
+                   and g["lr"].device == xs.device for g in groups):
+            raise ValueError(
+                "a CUDA graph of train steps needs the optimizer of "
+                "optimization_helper(..., capturable=True): capturable Adam "
+                "with each group's lr a tensor on the batch's device")
+        sched = state.scheduler
+        if sched is not None and not isinstance(
+                sched, torch.optim.lr_scheduler.LambdaLR):
+            raise TypeError(f"a per-batch schedule must be a LambdaLR, got "
+                            f"{type(sched).__name__}")
+        self._xs, self._ys = torch.empty_like(xs), torch.empty_like(ys)
+        self._lrs = torch.empty((self.k, len(groups)), device=xs.device)
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        before = launch_counts()
+        # thread_local: the host feeder thread may pin and copy meanwhile
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = []
+            for k in range(self.k):
+                if sched is not None:
+                    for g, group in enumerate(groups):
+                        group["lr"].copy_(self._lrs[k, g])
+                out.append(self._body(state, self._xs[k], self._ys[k],
+                                      generator))
+                state.optimizer.step()
+            self._out = {
+                "loss": torch.stack([m["loss"] for m in out]).mean(),
+                "correct": torch.stack([m["correct"] for m in out]).sum(),
+                "count": torch.stack([m["count"] for m in out]).sum()}
+        pool = tuple(graph.pool())
+        self.pool_bytes = sum(
+            seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool)
+        # the wrappers ran (and counted) while the capture recorded their
+        # launches; those launches run at each replay, not at the capture
+        after = launch_counts()
+        self.per_replay = {n: after[n] - before[n] for n in after
+                           if after[n] != before[n]}
+        for name, fn in KERNELS.items():
+            fn.launches = before[name]
+        self._graph = graph
+
+    def _replay(self, state, xs, ys):
+        self._xs.copy_(xs)
+        self._ys.copy_(ys)
+        sched = state.scheduler
+        if sched is not None:
+            lrs = [schedule_lrs(sched, sched.last_epoch + k)
+                   for k in range(self.k)]
+            self._lrs.copy_(torch.tensor(lrs, dtype=torch.float32)
+                            .pin_memory(), non_blocking=True)
+        self._graph.replay()
+        self.replays += 1
+        if sched is not None:
+            set_schedule_clock(sched, sched.last_epoch + self.k)
+        state.step += self.k
+        return {name: v.clone() for name, v in self._out.items()}
 
 
 def make_eval_step(model_type: str = "multiclass") -> Callable:

@@ -548,3 +548,211 @@ def test_train_cli_launches_the_kernels(cuda_device, tmp_path):
     assert json.loads(m.group(2)) == {"fwd": 2, "fwd_save": 6, "bwd": 6,
                                       "fwd_bf16": 0, "fwd_save_bf16": 0,
                                       "bwd_bf16": 0}
+
+
+# ------------------------------------- ops, graphs and artifacts on the card
+
+SMALL = {"frontend": {"name": "leaf", "n_filters": 16},
+         "audio_config": {"sample_rate": 16000},
+         "model": {"arch": "efficientnet", "model_depth": "b0",
+                   "num_classes": 5},
+         "opt": {"optimizer": "Adam", "lr": 1e-3, "weight_decay": 1e-4,
+                 "scheduler": "warmupcosine", "warmup_epochs": 1}}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ops_pass_opcheck_on_card(cuda_device, bf16):
+    x, gabor, windows = _operands(2, 3000, 40, cuda_device)
+    if bf16:
+        x, gabor = x.bfloat16(), gabor.bfloat16()
+    torch.library.opcheck(torch.ops.leaf_tpu_torch.fused_fwd,
+                          (x, gabor, windows))
+    torch.library.opcheck(torch.ops.leaf_tpu_torch.fused_fwd_save,
+                          (x, gabor, windows))
+    out, conv = fused.fused_fwd_save_op(x, gabor, windows)
+    torch.library.opcheck(torch.ops.leaf_tpu_torch.fused_bwd,
+                          (x, conv, windows, torch.randn_like(out)))
+
+
+def _small_state(device, capturable, cfg=SMALL):
+    from leaf_tpu_torch.models import Classifier
+    from leaf_tpu_torch.training import TrainState, optimization_helper
+    model = Classifier(cfg, device=device,
+                       generator=torch.Generator().manual_seed(0))
+    opt, sched, _, _ = optimization_helper(
+        cfg, model.parameters(), num_tr_steps_per_epoch=2, num_epochs=4,
+        capturable=capturable)
+    return TrainState(model, opt, sched)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_multistep_graph_matches_eager_steps(cuda_device, bf16):
+    # a replay of the K-step graph against K eager steps from copies of
+    # the same state and generator state, augment, dropout and
+    # drop-connect on. The two are not bit-equal (cuDNN's weight
+    # gradients sum in no fixed order), and at B=8 Adam turns gradient
+    # entries at float-noise level into lr-sized updates of either sign,
+    # so the parameters are held as chip_smoke.py holds two train runs:
+    # the update Δ = p − p₀ to 3e-2 of its norm; the loss mean to 1e-5
+    # (f32) or one bf16 ulp (a bf16 loss flips by one in ~1 step of 3)
+    import copy
+
+    from leaf_tpu_torch.data import leaf_device_augment
+    from leaf_tpu_torch.training import make_train_multistep, make_train_step
+    cfg = SMALL
+    if bf16:
+        cfg = {**SMALL, "frontend": {**SMALL["frontend"],
+                                     "compute_dtype": "bfloat16"},
+               "model": {**SMALL["model"], "compute_dtype": "bfloat16"}}
+    k, sfx = 3, "_bf16" if bf16 else ""
+    st = _small_state(cuda_device, True, cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    multi = make_train_multistep(k, augment_fn=leaf_device_augment)
+    rng = np.random.RandomState(3)
+    groups = [(torch.from_numpy((rng.randn(k, 8, 16000) * 0.1)
+                                .astype(np.float32)).to(cuda_device),
+               torch.from_numpy(rng.randint(0, 5, (k, 8))).to(cuda_device))
+              for _ in range(2)]
+    multi(st, *groups[0], gen)
+    assert multi.per_replay == {"fwd_save" + sfx: k, "bwd" + sfx: k}
+    p0 = [p.detach().clone() for p in st.model.parameters()]
+    twin = _small_state(cuda_device, True, cfg)
+    twin.model.load_state_dict(st.model.state_dict())
+    twin.optimizer.load_state_dict(copy.deepcopy(st.optimizer.state_dict()))
+    twin.scheduler.load_state_dict(st.scheduler.state_dict())
+    twin.step = st.step
+    tgen = torch.Generator(device=cuda_device)
+    tgen.set_state(gen.get_state())
+    before = fused.launch_counts()
+    got = multi(st, *groups[1], gen)
+    assert fused.launch_counts() == before   # a replay is not counted
+    assert multi.replays == 1
+    assert multi.graph_launch_counts() == multi.per_replay
+    step = make_train_step(augment_fn=leaf_device_augment)
+    ref = [step(twin, groups[1][0][i], groups[1][1][i], tgen)
+           for i in range(k)]
+    assert st.step == twin.step == 2 * k
+    assert st.scheduler.last_epoch == twin.scheduler.last_epoch == 2 * k
+    ref_loss = torch.stack([m["loss"] for m in ref]).float().mean()
+    torch.testing.assert_close(got["loss"].float(), ref_loss, atol=0,
+                               rtol=2 ** -8 if bf16 else 1e-5)
+    assert int(got["correct"]) == sum(int(m["correct"]) for m in ref)
+    assert int(got["count"]) == 8 * k
+    num = den = 0.0
+    for p, q, r in zip(st.model.parameters(), twin.model.parameters(), p0):
+        num += float(((p - q) ** 2).sum())
+        den += float(((q - r) ** 2).sum())
+    assert den > 0 and (num / den) ** 0.5 < 3e-2, (num / den) ** 0.5
+    assert gen.get_state().equal(tgen.get_state())
+
+
+def test_multistep_needs_a_capturable_optimizer(cuda_device):
+    from leaf_tpu_torch.training import make_train_multistep
+    st = _small_state(cuda_device, False)
+    xs = torch.zeros(2, 4, 16000, device=cuda_device)
+    ys = torch.zeros(2, 4, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="capturable=True"):
+        make_train_multistep(2)(st, xs, ys)
+
+
+def test_checkpoint_crosses_capturable_modes(cuda_device, tmp_path):
+    from leaf_tpu_torch.training import make_train_step
+    from leaf_tpu_torch.training.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    x = next(_operands(4, 16000, 40, cuda_device))
+    y = torch.tensor([0, 1, 2, 3], device=cuda_device)
+    step = make_train_step()
+    for src, dst in ((False, True), (True, False)):
+        a = _small_state(cuda_device, src)
+        step(a, x, y)
+        path = save_checkpoint(str(tmp_path / f"{src}"), a, 0, 0.0, 0.0, 0.0)
+        b = _small_state(cuda_device, dst)
+        lr = b.optimizer.param_groups[0]["lr"]
+        load_checkpoint(path, b)
+        group = b.optimizer.param_groups[0]
+        assert group["capturable"] is dst and b.step == 1
+        if dst:
+            assert group["lr"] is lr and lr.is_cuda
+        assert float(group["lr"]) == pytest.approx(
+            float(a.optimizer.param_groups[0]["lr"]))
+        for p in group["params"]:
+            assert b.optimizer.state[p]["step"].device.type == (
+                "cuda" if dst else "cpu")
+        step(b, x, y)
+        assert b.step == 2
+
+
+def test_artifact_runs_the_kernel_on_card(cuda_device, tmp_path):
+    from leaf_tpu_torch.models import Classifier
+    from leaf_tpu_torch.models.common import set_batch_norm_stats_
+    from leaf_tpu_torch.serving import save_exported
+    model = Classifier(SMALL, generator=torch.Generator().manual_seed(0))
+    set_batch_norm_stats_(model.eval(), next(_operands(8, 16000, 40,
+                                                       cuda_device)))
+    state = model.state_dict()
+    manifest = save_exported(str(tmp_path), SMALL, state_dict=state,
+                             batch_sizes=(4,))
+    assert manifest["device"] == "cuda"
+    art = ServingModel.load(str(tmp_path))
+    live = ServingModel(SMALL, state_dict=state, batch_sizes=(4,))
+    x = (np.random.RandomState(4).randn(6, 16000) * 0.1).astype(np.float32)
+    before = fused.fused_forward_cuda.launches
+    got = art(x)
+    assert fused.fused_forward_cuda.launches == before + 2
+    ref = live(x)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    with pytest.raises(ValueError, match="exported for 'cuda'"):
+        ServingModel.load(str(tmp_path), device="cpu")
+
+
+def test_streaming_on_card_matches_offline(cuda_device):
+    from leaf_tpu_torch.frontend import LeafStreamer
+    leaf = Leaf(use_fused_kernel="off", n_filters=16, device=cuda_device)
+    wave = (np.random.RandomState(5).randn(3, 8160) * 0.1).astype(np.float32)
+    st = LeafStreamer(leaf, 1600)
+    frames = [st.process(wave[:, i * 1600:(i + 1) * 1600]) for i in range(5)]
+    frames.append(st.flush(wave[:, 8000:]))
+    got = torch.cat(frames, dim=1)
+    assert got.is_cuda
+    with torch.no_grad():
+        ref = leaf(torch.from_numpy(wave).to(cuda_device))
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-6)
+
+
+def test_train_cli_steps_per_call_counts_the_replays(cuda_device, tmp_path):
+    root = make_tiny_exp(tmp_path)
+    env = {**os.environ, "PYTHONPATH": REPO}
+    res = subprocess.run(
+        [sys.executable, "-u", "-m", "leaf_tpu_torch.train", "--cfg_file",
+         str(root / "cfg.cfg"), "--expdir", str(tmp_path / "exp"),
+         "--epochs", "2", "--num_workers", "2", "--steps_per_call", "2"],
+        capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    lines = re.findall(r"epoch (\d): tr_loss (\S+) .* kernels (\{.*\})",
+                       res.stdout)
+    assert len(lines) == 2 and all(np.isfinite(float(m[1])) for m in lines)
+    # 6 steps per epoch as 3 groups of 2: epoch 0 runs the first group
+    # eagerly and captures, the other 5 groups replay; 2 eval batches each
+    assert json.loads(lines[1][2]) == {"fwd": 4, "fwd_save": 12, "bwd": 12,
+                                       "fwd_bf16": 0, "fwd_save_bf16": 0,
+                                       "bwd_bf16": 0}
+
+
+def test_train_cli_watch_flags_on_card(cuda_device, tmp_path):
+    # --wandb_watch_model and --watch_histograms on the card (they force
+    # --steps_per_call 1); tensorboardX, where installed, gets the
+    # histograms, else the logger drops them
+    root = make_tiny_exp(tmp_path)
+    env = {**os.environ, "PYTHONPATH": REPO}
+    res = subprocess.run(
+        [sys.executable, "-u", "-m", "leaf_tpu_torch.train", "--cfg_file",
+         str(root / "cfg.cfg"), "--expdir", str(tmp_path / "exp"),
+         "--epochs", "1", "--num_workers", "2", "--log_steps", "2",
+         "--wandb_watch_model", "--watch_histograms",
+         "--steps_per_call", "4"],
+        capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "--steps_per_call forced to 1" in res.stdout
+    m = re.search(r"epoch 0: tr_loss (\S+) .* kernels (\{.*\})", res.stdout)
+    assert m and np.isfinite(float(m.group(1))), res.stdout[-2000:]
+    assert json.loads(m.group(2))["fwd_save"] == 6

@@ -267,6 +267,8 @@ def test_port_imports_no_jax():
     sources = sorted((REPO / "leaf_tpu_torch").rglob("*.py"))
     sources.append(REPO / "chip_smoke.py")
     assert len(sources) > 10
+    assert {"streaming.py", "serving.py", "export_serving.py",
+            "histograms.py", "steps.py"} <= {p.name for p in sources}
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
               "leaf_tpu", "yaml", "pandas", "soundfile", "msgpack"}
     optional = {"soundfile"}
