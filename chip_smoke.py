@@ -15,8 +15,10 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   (and the backward's shared memory) are logged, and the
                   bf16 forward keeps its 52 bf16 HGMMAs
 2. parity       — primal forward kernel vs its plain PyTorch version,
-                  B=256, F=40, T ∈ {16000, 12345, 48000}; two launches
-                  bit-equal; the worst ratio of error to tolerance
+                  B=256, F=40, T ∈ {16000, 12345, 48000}, and at the
+                  AudioSet ResNet-18 cfg's B=128, T=80000, F=64 (phases 3
+                  and 4 too); two launches bit-equal; the worst ratio of
+                  error to tolerance
 3. parity-train — the residual-saving forward kernel (out and OUT) and the
                   backward kernel (d_bank, d_windows) vs their plain
                   versions and vs autograd through the plain forward, at
@@ -41,7 +43,8 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   2 steps at B=8 held against the CPU, and 100 steps of
                   bf16 against f32 on a tone task (the JAX test's bounds)
 7. timings      — each kernel (f32 and bf16), its plain version and the
-                  cuDNN composition at B=256, T=16000 (CUDA events);
+                  cuDNN composition at B=256, T=16000 (CUDA events), and
+                  at B=128, T=80000, F=64 (``[timing-audioset]``);
                   serving latency per bucket, f32 and bf16; the train step
                   fused, 'off' and bf16, with a torch.profiler split
 8. stream       — the streaming frontend (``LeafStreamer``, seeded
@@ -64,6 +67,23 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   launches of the dtype's kernels per replay in the
                   profiler, host ms per step at K = 1 (eager), 4 and 8
                   (graph) with device-busy time, idle share and pool size
+10b. zoo        — the rest of the model zoo on the fused kernels. The
+                  speechcommands ResNet-18 cfg (read from cfgs/) served
+                  through ``ServingModel`` (8, 64) in f32 and bf16 and from
+                  ``save_exported`` artifacts (one primal launch per
+                  bucket forward; logits against 'off', the CPU, f32 and
+                  the live module; latency per bucket); trained at B=256
+                  (5 steps f32 and bf16, launch counts), fused against
+                  'off' (losses of 3 steps, the first step's gradients
+                  and running stats), as a K=4 graph against 4 eager
+                  steps, and timed (ms per step eager and at K=4, device
+                  busy, idle and frontend share, the largest kernels);
+                  the AudioSet cfg (B=128 x 80000, F=64, multilabel): 3
+                  steps and 1 step against 'off'; ResNet-50, ResNet-18
+                  with NetVLAD, CIFAR-ResNet-20, DenseNet-121
+                  (memory_efficient) and b0 (remat) at B=32: logits
+                  against the CPU, a train step, remat on against off
+                  (cuDNN deterministic), and b0 with remat as a K=4 graph
 11. cli         — the flagship recipe through ``python -m
                   leaf_tpu_torch.train`` / ``.evaluate`` on a synthetic tone
                   task (35 classes; 1024 train, 256 val clips of 1 s, 48
@@ -78,7 +98,9 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   on the trained experiment (its artifact against the live
                   model of the checkpoint); ``train --steps_per_call 4``
                   for 2 epochs (epoch 1 replays the graph; the epoch line
-                  counts the replays' launches)
+                  counts the replays' launches); the speechcommands
+                  ResNet-18 cfg through ``train`` (1 epoch, its launch
+                  counts) and ``evaluate``
 12. report       — card name and power limit, the ``kernels`` JSON line (six
                   kernels: f32 and bf16), and the last line
                   ``{"ok": true, "device": {...}}``
@@ -110,6 +132,12 @@ BUCKETS = (8, 64)
 REQUEST_SIZES = (3, 8, 64, 100)
 PARITY_B, PARITY_F = 256, 40
 PARITY_T = (16000, 12345, 48000)
+# the AudioSet ResNet-18 cfg's shape (cfgs/audioset/resnet-18-leaf-default
+# .cfg: 64 filters, 5 s clips, B=128): the f32 forward's blocks of 20
+# channels end in a group of 4, the backward's groups of 40 in one of 24
+AUDIOSET_B, AUDIOSET_F, AUDIOSET_T = 128, 64, 80000
+PARITY_SHAPES = ((PARITY_B, PARITY_F, PARITY_T),
+                 (AUDIOSET_B, AUDIOSET_F, (AUDIOSET_T,)))
 # kernel vs plain, elementwise: |k − p| ≤ RTOL·|p| + ATOL_REL·max|p|.
 # The kernels sum the 401-tap products on the tensor cores in 3×TF32
 # (~22 bits per product, the accumulator flushed into f32 every 136
@@ -275,10 +303,11 @@ def phase_build():
                 f"HGMMAs, not {FWD_BF16_HGMMAS}: its SASS changed")
 
 
-def leaf_operands(device):
-    """The flagship Leaf's (bank, windows) at its mel init, on ``device``."""
+def leaf_operands(device, n_filters: int = PARITY_F):
+    """(bank, windows) of a Leaf of ``n_filters`` (the flagship's 40 by
+    default) at its mel init, on ``device``."""
     from leaf_tpu_torch.frontend import Leaf
-    leaf = Leaf(device=device)
+    leaf = Leaf(n_filters=n_filters, device=device)
     with torch.no_grad():
         bank = leaf._complex_conv.emit_filters().contiguous()
         windows = leaf._pooling.emit_windows()[0].contiguous()
@@ -291,21 +320,24 @@ def phase_parity(device):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log("[parity] TF32 off (cudnn.allow_tf32 = matmul.allow_tf32 = False)")
-    bank, windows = leaf_operands(device)
     rng = np.random.RandomState(0)
-    x_all = torch.from_numpy(
-        (rng.randn(PARITY_B, max(PARITY_T)) * 0.1).astype(np.float32)
-    ).to(device)
     worst = 0.0
-    for t in PARITY_T:
-        x = x_all[:, :t].contiguous()
-        got = fused_forward_cuda(x, bank, windows)
-        again = fused_forward_cuda(x, bank, windows)
-        ref = fused_reference(x, bank, windows)
-        torch.cuda.synchronize()
-        _check_bit_equal("[parity]", f"fwd T={t}", (got,), (again,))
-        worst = max(worst, _check_elementwise(
-            "[parity]", f"fwd T={t} B={PARITY_B} F={PARITY_F}", got, ref))
+    for b, f, ts in PARITY_SHAPES:
+        bank, windows = leaf_operands(device, f)
+        x_all = torch.from_numpy(
+            (rng.randn(b, max(ts)) * 0.1).astype(np.float32)).to(device)
+        for t in ts:
+            x = x_all[:, :t].contiguous()
+            got = fused_forward_cuda(x, bank, windows)
+            again = fused_forward_cuda(x, bank, windows)
+            ref = fused_reference(x, bank, windows)
+            torch.cuda.synchronize()
+            _check_bit_equal("[parity]", f"fwd T={t} F={f}", (got,),
+                             (again,))
+            worst = max(worst, _check_elementwise(
+                "[parity]", f"fwd T={t} B={b} F={f}", got, ref))
+            del got, again, ref
+        del x_all
     return worst
 
 
@@ -357,50 +389,54 @@ def phase_parity_train(device):
         fused_backward_cuda, fused_backward_reference,
         fused_forward_saving_cuda, fused_forward_saving_reference,
         fused_reference)
-    bank, windows = leaf_operands(device)
     rng = np.random.RandomState(4)
-    x_all = torch.from_numpy(
-        (rng.randn(PARITY_B, max(PARITY_T)) * 0.1).astype(np.float32)
-    ).to(device)
     worst_fwd = worst_bwd = 0.0
-    for t in PARITY_T:
-        x = x_all[:, :t].contiguous()
-        out, conv = fused_forward_saving_cuda(x, bank, windows)
-        again = fused_forward_saving_cuda(x, bank, windows)
-        ref_out, ref_conv = fused_forward_saving_reference(x, bank, windows)
-        torch.cuda.synchronize()
-        _check_bit_equal("[parity-train]", f"saving fwd T={t}", (out, conv),
-                         again)
-        del again
-        worst_fwd = max(worst_fwd,
-                        _check_elementwise("[parity-train]",
-                                           f"saving fwd out T={t}", out,
-                                           ref_out),
-                        _check_elementwise("[parity-train]",
-                                           f"saving fwd OUT T={t}", conv,
-                                           ref_conv))
-        del ref_conv
-        d_out = torch.from_numpy(
-            rng.randn(*out.shape).astype(np.float32)).to(device)
-        d_bank, d_win = fused_backward_cuda(x, conv, windows, d_out)
-        again = fused_backward_cuda(x, conv, windows, d_out)
-        p_bank, p_win = fused_backward_reference(x, conv, windows, d_out)
-        torch.cuda.synchronize()
-        _check_bit_equal("[parity-train]", f"bwd T={t}", (d_bank, d_win),
-                         again)
-        del again
-        # autograd through the plain forward, x not requiring a gradient
-        b_ = bank.clone().requires_grad_()
-        w_ = windows.clone().requires_grad_()
-        a_bank, a_win = torch.autograd.grad(
-            fused_reference(x, b_, w_), (b_, w_), d_out)
-        for tag, got, ref in (("d_bank", d_bank, p_bank),
-                              ("d_windows", d_win, p_win),
-                              ("d_bank vs autograd", d_bank, a_bank),
-                              ("d_windows vs autograd", d_win, a_win)):
-            worst_bwd = max(worst_bwd, _check_grad(f"bwd {tag} T={t}", got,
-                                                   ref))
-        del conv, p_bank, p_win, a_bank, a_win
+    for b, f, ts in PARITY_SHAPES:
+        bank, windows = leaf_operands(device, f)
+        x_all = torch.from_numpy(
+            (rng.randn(b, max(ts)) * 0.1).astype(np.float32)).to(device)
+        for t in ts:
+            x = x_all[:, :t].contiguous()
+            sh = f"T={t} F={f}"
+            out, conv = fused_forward_saving_cuda(x, bank, windows)
+            again = fused_forward_saving_cuda(x, bank, windows)
+            ref_out, ref_conv = fused_forward_saving_reference(x, bank,
+                                                               windows)
+            torch.cuda.synchronize()
+            _check_bit_equal("[parity-train]", f"saving fwd {sh}",
+                             (out, conv), again)
+            del again
+            worst_fwd = max(worst_fwd,
+                            _check_elementwise("[parity-train]",
+                                               f"saving fwd out {sh}", out,
+                                               ref_out),
+                            _check_elementwise("[parity-train]",
+                                               f"saving fwd OUT {sh}", conv,
+                                               ref_conv))
+            del ref_conv
+            d_out = torch.from_numpy(
+                rng.randn(*out.shape).astype(np.float32)).to(device)
+            d_bank, d_win = fused_backward_cuda(x, conv, windows, d_out)
+            again = fused_backward_cuda(x, conv, windows, d_out)
+            p_bank, p_win = fused_backward_reference(x, conv, windows, d_out)
+            torch.cuda.synchronize()
+            _check_bit_equal("[parity-train]", f"bwd {sh}", (d_bank, d_win),
+                             again)
+            del again, conv
+            # autograd through the plain forward, x not requiring a gradient
+            b_ = bank.clone().requires_grad_()
+            w_ = windows.clone().requires_grad_()
+            a_bank, a_win = torch.autograd.grad(
+                fused_reference(x, b_, w_), (b_, w_), d_out)
+            for tag, got, ref in (("d_bank", d_bank, p_bank),
+                                  ("d_windows", d_win, p_win),
+                                  ("d_bank vs autograd", d_bank, a_bank),
+                                  ("d_windows vs autograd", d_win, a_win)):
+                worst_bwd = max(worst_bwd, _check_grad(f"bwd {tag} {sh}",
+                                                       got, ref))
+            del p_bank, p_win, a_bank, a_win, out, ref_out, d_out
+        del x_all
+        torch.cuda.empty_cache()
     return worst_fwd, worst_bwd
 
 
@@ -433,66 +469,72 @@ def _check_ulp(phase: str, tag: str, got, ref, atol_rel: float) -> float:
 
 def phase_parity_bf16(device):
     """The three bf16 kernels vs their plain bf16 versions: x and the bank
-    in bf16, the windows in f32, B=256, F=40, T ∈ PARITY_T; two launches
+    in bf16, the windows in f32, at each of PARITY_SHAPES; two launches
     of each bit-equal."""
     from leaf_tpu_torch.ops.fused_frontend import (
         fused_backward_bf16_cuda, fused_backward_reference,
         fused_forward_bf16_cuda, fused_forward_saving_bf16_cuda,
         fused_forward_saving_reference, fused_reference)
-    bank, windows = leaf_operands(device)
-    bank = bank.bfloat16()
     rng = np.random.RandomState(9)
-    x_all = torch.from_numpy(
-        (rng.randn(PARITY_B, max(PARITY_T)) * 0.1).astype(np.float32)
-    ).to(device).bfloat16()
     worst = {"fwd": 0.0, "fwd_save": 0.0, "bwd": 0.0}
-    for t in PARITY_T:
-        x = x_all[:, :t].contiguous()
-        got = fused_forward_bf16_cuda(x, bank, windows)
-        again = fused_forward_bf16_cuda(x, bank, windows)
-        ref = fused_reference(x, bank, windows)
-        torch.cuda.synchronize()
-        _check_bit_equal("[parity-bf16]", f"fwd T={t}", (got,), (again,))
-        worst["fwd"] = max(worst["fwd"], _check_elementwise(
-            "[parity-bf16]", f"fwd T={t} B={PARITY_B} F={PARITY_F}", got,
-            ref))
-        del got, again
-        out, conv = fused_forward_saving_bf16_cuda(x, bank, windows)
-        again = fused_forward_saving_bf16_cuda(x, bank, windows)
-        ref_out, ref_conv = fused_forward_saving_reference(x, bank, windows)
-        torch.cuda.synchronize()
-        _check_bit_equal("[parity-bf16]", f"saving fwd T={t}", (out, conv),
-                         again)
-        del again
-        if conv.dtype != torch.bfloat16:
-            raise AssertionError(f"OUT is {conv.dtype}, not bf16")
-        worst["fwd_save"] = max(
-            worst["fwd_save"],
-            _check_elementwise("[parity-bf16]", f"saving fwd out T={t}",
-                               out, ref_out),
-            _check_ulp("[parity-bf16]", f"saving fwd OUT T={t}", conv,
-                       ref_conv, KERNEL_ATOL_REL))
-        del ref_conv
-        d_out = torch.from_numpy(
-            rng.randn(*out.shape).astype(np.float32)).to(device)
-        d_bank, d_win = fused_backward_bf16_cuda(x, conv, windows, d_out)
-        again = fused_backward_bf16_cuda(x, conv, windows, d_out)
-        p_bank, p_win = fused_backward_reference(x, conv, windows, d_out)
-        torch.cuda.synchronize()
-        _check_bit_equal("[parity-bf16]", f"bwd T={t}", (d_bank, d_win),
-                         again)
-        rel = float((d_bank.float() - p_bank.float()).norm()
-                    / p_bank.float().norm())
-        log(f"[parity-bf16] bwd d_bank T={t} dtype {d_bank.dtype}: "
-            f"rel-norm {rel:.3e} (tol {GRAD_BF16_TOL:g})")
-        if d_bank.dtype != torch.bfloat16 or rel > GRAD_BF16_TOL:
-            raise AssertionError(f"bwd d_bank T={t}: {d_bank.dtype}, {rel}")
-        worst["bwd"] = max(
-            worst["bwd"],
-            _check_ulp("[parity-bf16]", f"bwd d_bank T={t}", d_bank, p_bank,
-                       GRAD_REL_TOL),
-            _check_grad(f"bwd d_windows T={t} (bf16 kernel)", d_win, p_win))
-        del conv, out, again, p_bank, p_win
+    for b, f, ts in PARITY_SHAPES:
+        bank, windows = leaf_operands(device, f)
+        bank = bank.bfloat16()
+        x_all = torch.from_numpy(
+            (rng.randn(b, max(ts)) * 0.1).astype(np.float32)
+        ).to(device).bfloat16()
+        for t in ts:
+            x = x_all[:, :t].contiguous()
+            sh = f"T={t} F={f}"
+            got = fused_forward_bf16_cuda(x, bank, windows)
+            again = fused_forward_bf16_cuda(x, bank, windows)
+            ref = fused_reference(x, bank, windows)
+            torch.cuda.synchronize()
+            _check_bit_equal("[parity-bf16]", f"fwd {sh}", (got,), (again,))
+            worst["fwd"] = max(worst["fwd"], _check_elementwise(
+                "[parity-bf16]", f"fwd T={t} B={b} F={f}", got, ref))
+            del got, again, ref
+            out, conv = fused_forward_saving_bf16_cuda(x, bank, windows)
+            again = fused_forward_saving_bf16_cuda(x, bank, windows)
+            ref_out, ref_conv = fused_forward_saving_reference(x, bank,
+                                                               windows)
+            torch.cuda.synchronize()
+            _check_bit_equal("[parity-bf16]", f"saving fwd {sh}",
+                             (out, conv), again)
+            del again
+            if conv.dtype != torch.bfloat16:
+                raise AssertionError(f"OUT is {conv.dtype}, not bf16")
+            worst["fwd_save"] = max(
+                worst["fwd_save"],
+                _check_elementwise("[parity-bf16]", f"saving fwd out {sh}",
+                                   out, ref_out),
+                _check_ulp("[parity-bf16]", f"saving fwd OUT {sh}", conv,
+                           ref_conv, KERNEL_ATOL_REL))
+            del ref_conv
+            d_out = torch.from_numpy(
+                rng.randn(*out.shape).astype(np.float32)).to(device)
+            d_bank, d_win = fused_backward_bf16_cuda(x, conv, windows, d_out)
+            again = fused_backward_bf16_cuda(x, conv, windows, d_out)
+            p_bank, p_win = fused_backward_reference(x, conv, windows, d_out)
+            torch.cuda.synchronize()
+            _check_bit_equal("[parity-bf16]", f"bwd {sh}", (d_bank, d_win),
+                             again)
+            rel = float((d_bank.float() - p_bank.float()).norm()
+                        / p_bank.float().norm())
+            log(f"[parity-bf16] bwd d_bank {sh} dtype {d_bank.dtype}: "
+                f"rel-norm {rel:.3e} (tol {GRAD_BF16_TOL:g})")
+            if d_bank.dtype != torch.bfloat16 or rel > GRAD_BF16_TOL:
+                raise AssertionError(f"bwd d_bank {sh}: {d_bank.dtype}, "
+                                     f"{rel}")
+            worst["bwd"] = max(
+                worst["bwd"],
+                _check_ulp("[parity-bf16]", f"bwd d_bank {sh}", d_bank,
+                           p_bank, GRAD_REL_TOL),
+                _check_grad(f"bwd d_windows {sh} (bf16 kernel)", d_win,
+                            p_win))
+            del conv, out, again, p_bank, p_win, ref_out, d_out
+        del x_all
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -607,7 +649,9 @@ def _no_launches() -> dict:
 
 def _trainer(cfg, state, device, augment: bool, steps_per_epoch: int,
              epochs: int, capturable: bool = False):
-    """(TrainState, train step) for ``cfg`` from the weights ``state``."""
+    """(TrainState, train step) for ``cfg`` from the weights ``state``;
+    the step's loss is the cfg's ``model.type`` (multiclass unless
+    named)."""
     from leaf_tpu_torch.data import leaf_device_augment
     from leaf_tpu_torch.models import Classifier
     from leaf_tpu_torch.training import (TrainState, make_train_step,
@@ -618,7 +662,8 @@ def _trainer(cfg, state, device, augment: bool, steps_per_epoch: int,
         cfg, clf.parameters(), num_tr_steps_per_epoch=steps_per_epoch,
         num_epochs=epochs, capturable=capturable)
     return (TrainState(clf, opt, sched),
-            make_train_step(augment_fn=leaf_device_augment if augment
+            make_train_step(cfg["model"].get("type", "multiclass"),
+                            augment_fn=leaf_device_augment if augment
                             else None))
 
 
@@ -814,7 +859,11 @@ def _bound(flops: float, nbytes: float, tc_flops: float = 0.0,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
 
 
-def phase_timings(device, servers):
+def _kernel_timings(device, b: int, t: int, f: int, iters: int = 20,
+                    tag: str = "[timing]") -> dict:
+    """Each kernel (f32 and bf16), its plain version and the cuDNN
+    composition at (B, T, F) = (b, t, f), CUDA events over ``iters``
+    launches, with the kernel's bound at that shape (``_bound``)."""
     import torch.nn.functional as F
 
     from leaf_tpu_torch.ops.fused_frontend import (
@@ -823,9 +872,7 @@ def phase_timings(device, servers):
         fused_forward_cuda, fused_forward_saving_bf16_cuda,
         fused_forward_saving_cuda, fused_forward_saving_reference,
         fused_reference, lowpass_frames_out)
-    b, t = 256, 16000
-    bank, windows = leaf_operands(device)
-    f = windows.shape[0]
+    bank, windows = leaf_operands(device, f)
     rng = np.random.RandomState(2)
     x = torch.from_numpy((rng.randn(b, t) * 0.1).astype(np.float32)).to(device)
     n_frames = lowpass_frames_out(t, 160, 401, (200, 200))
@@ -833,6 +880,9 @@ def phase_timings(device, servers):
         rng.randn(b, n_frames, f).astype(np.float32)).to(device)
     weight = bank.T[:, None, :].contiguous()
     win = windows[:, None, :].contiguous()
+
+    def timed(fn):
+        return cuda_time_ms(fn, iters=iters, warmup=min(3, iters))
 
     def library(w=weight, wn=win):  # cuDNN: conv1d → |·|² → grouped strided conv1d
         out = F.conv1d(x[:, None, :], w, padding=200)
@@ -854,17 +904,16 @@ def phase_timings(device, servers):
     # on the tensor cores, the rest on the CUDA cores; the f32-FMA bound
     # that any CUDA-core design has is logged beside it
     fwd_bytes = in_bytes + out_bytes
-    ms = cuda_time_ms(lambda: fused_forward_cuda(x, bank, windows))
+    ms = timed(lambda: fused_forward_cuda(x, bank, windows))
     results["fwd"] = {"ms": ms,
-                      "plain_ms": cuda_time_ms(
+                      "plain_ms": timed(
                           lambda: fused_reference(x, bank, windows)),
-                      "library_ms": cuda_time_ms(library),
+                      "library_ms": timed(library),
                       **_bound(fwd_flops - conv_flops, fwd_bytes,
                                3 * conv_flops)}
     results["fwd_save"] = {
-        "ms": cuda_time_ms(lambda: fused_forward_saving_cuda(x, bank,
-                                                             windows)),
-        "plain_ms": cuda_time_ms(
+        "ms": timed(lambda: fused_forward_saving_cuda(x, bank, windows)),
+        "plain_ms": timed(
             lambda: fused_forward_saving_reference(x, bank, windows)),
         # the composition computes OUT (its conv1d output) on the way
         "library_ms": results["fwd"]["library_ms"],
@@ -878,11 +927,11 @@ def phase_timings(device, servers):
     bwd_bytes = (in_bytes + conv_bytes + out_bytes
                  + 4 * (401 * 2 * f + f * 401))
     results["bwd"] = {
-        "ms": cuda_time_ms(lambda: fused_backward_cuda(x, conv, windows,
+        "ms": timed(lambda: fused_backward_cuda(x, conv, windows,
                                                        d_out)),
-        "plain_ms": cuda_time_ms(
+        "plain_ms": timed(
             lambda: fused_backward_reference(x, conv, windows, d_out)),
-        "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
+        "library_ms": timed(lambda: torch.autograd.grad(
             lib_out, (wr, wnr), d_out.transpose(1, 2), retain_graph=True)),
         **_bound(bwd_flops - conv_flops, bwd_bytes, 3 * conv_flops)}
     del conv, lib_out
@@ -905,17 +954,17 @@ def phase_timings(device, servers):
     conv_b16 = 2 * b * 2 * f * t
     fwd_b16 = in_b16 + out_bytes
     results["fwd_bf16"] = {
-        "ms": cuda_time_ms(lambda: fused_forward_bf16_cuda(xb, bankb,
+        "ms": timed(lambda: fused_forward_bf16_cuda(xb, bankb,
                                                            windows)),
-        "plain_ms": cuda_time_ms(
+        "plain_ms": timed(
             lambda: fused_reference(xb, bankb, windows)),
-        "library_ms": cuda_time_ms(library_bf16),
+        "library_ms": timed(library_bf16),
         **_bound(fwd_flops - conv_flops, fwd_b16, conv_flops,
                  BF16_PEAK_FLOPS)}
     results["fwd_save_bf16"] = {
-        "ms": cuda_time_ms(lambda: fused_forward_saving_bf16_cuda(
+        "ms": timed(lambda: fused_forward_saving_bf16_cuda(
             xb, bankb, windows)),
-        "plain_ms": cuda_time_ms(
+        "plain_ms": timed(
             lambda: fused_forward_saving_reference(xb, bankb, windows)),
         "library_ms": results["fwd_bf16"]["library_ms"],
         **_bound(fwd_flops - conv_flops, fwd_b16 + conv_b16, conv_flops,
@@ -926,25 +975,26 @@ def phase_timings(device, servers):
     lib_out = library_bf16(wr, wnr)
     d_out_b = d_out.bfloat16().transpose(1, 2)
     results["bwd_bf16"] = {
-        "ms": cuda_time_ms(lambda: fused_backward_bf16_cuda(
+        "ms": timed(lambda: fused_backward_bf16_cuda(
             xb, conv, windows, d_out)),
-        "plain_ms": cuda_time_ms(
+        "plain_ms": timed(
             lambda: fused_backward_reference(xb, conv, windows, d_out)),
-        "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
+        "library_ms": timed(lambda: torch.autograd.grad(
             lib_out, (wr, wnr), d_out_b, retain_graph=True)),
         **_bound(bwd_flops - conv_flops,
                  in_b16 + conv_b16 + out_bytes + 2 * 401 * 2 * f
                  + 4 * f * 401, conv_flops, BF16_PEAK_FLOPS)}
-    del conv, lib_out, xb
+    del conv, lib_out, xb, x, d_out
+    torch.cuda.empty_cache()
     for name, r in results.items():
         dtype = "bf16" if name.endswith("_bf16") else "f32"
-        log(f"[timing] {name} kernel B={b} T={t} F={f} {dtype}: "
+        log(f"{tag} {name} kernel B={b} T={t} F={f} {dtype}: "
             f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of the "
             f"{r['bound_by']} bound {r['bound_ms']:.4f} ms); plain version "
             f"{r['plain_ms']:.4f} ms; cuDNN composition (library) "
-            f"{r['library_ms']:.4f} ms")
-    # each kernel against both bounds: its conv correlation in f32 on the
-    # CUDA cores, or three times (3×TF32) on the tensor cores
+            f"{r['library_ms']:.4f} ms ({iters} launches each)")
+    # each f32 kernel against both bounds: its conv correlation in f32 on
+    # the CUDA cores, or three times (3×TF32) on the tensor cores
     fma_bounds = {"fwd": _bound(fwd_flops, fwd_bytes),
                   "fwd_save": _bound(fwd_flops, fwd_bytes + conv_bytes),
                   "bwd": _bound(bwd_flops, bwd_bytes)}
@@ -953,10 +1003,22 @@ def phase_timings(device, servers):
             continue
         ms, tc_ms = r["ms"], r["bound_ms"]
         fma_ms = fma_bounds[name]["bound_ms"]
-        log(f"[timing] {name} bounds: f32 FMA {fma_ms:.4f} ms "
+        log(f"{tag} {name} bounds: f32 FMA {fma_ms:.4f} ms "
             f"({fma_ms / ms:.1%} of the kernel's time), 3×TF32 tensor cores "
             f"{tc_ms:.4f} ms ({tc_ms / ms:.1%})")
+    return results
 
+
+def phase_timing_audioset(device):
+    """The six kernels, their plain versions and the cuDNN composition at
+    the AudioSet ResNet-18 cfg's shape (B=128, T=80000, F=64)."""
+    _kernel_timings(device, AUDIOSET_B, AUDIOSET_T, AUDIOSET_F, iters=5,
+                    tag="[timing-audioset]")
+
+
+def phase_timings(device, servers):
+    results = _kernel_timings(device, 256, 16000, PARITY_F)
+    rng = np.random.RandomState(2)
     for dtype, server in servers.items():
         for bucket in BUCKETS:
             req = (rng.randn(bucket, 16000) * 0.1).astype(np.float32)
@@ -1214,8 +1276,8 @@ def phase_export(device, state, leaf, tmp):
 
 
 def _profiled(fn) -> tuple:
-    """(device-busy ms, kernel launches by KERNEL_SYMBOLS name) of one
-    ``fn()`` under torch.profiler."""
+    """(device-busy ms, kernel launches by KERNEL_SYMBOLS name, the fused
+    frontend kernels' device ms) of one ``fn()`` under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1225,7 +1287,9 @@ def _profiled(fn) -> tuple:
     busy = sum(e.self_device_time_total for e in events) / 1e3
     seen = {name: sum(e.count for e in events if sym in e.key)
             for name, sym in KERNEL_SYMBOLS.items()}
-    return busy, seen
+    front = sum(e.self_device_time_total for e in events
+                if "fused_fwd" in e.key or "fused_bwd" in e.key) / 1e3
+    return busy, seen, front
 
 
 def _stacked(rng, k: int, device):
@@ -1256,84 +1320,96 @@ def phase_multistep(device, state):
     augment, dropout and drop-connect on: a replay against K eager steps
     from the same state and generator state, its kernels in the profiler,
     and host ms per step at K = 1 (eager), 4 and 8 (graph)."""
-    from leaf_tpu_torch.data import leaf_device_augment
-    from leaf_tpu_torch.training import make_train_multistep
     results = {}
     for dtype, cfg, sfx in (("f32", TRAIN_CFG, ""),
                             ("bf16", _bf16(TRAIN_CFG), "_bf16")):
         tag = f"[multistep] {dtype}"
-        rng = np.random.RandomState(16)
-        st, _ = _trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS,
-                         capturable=True)
-        gen = torch.Generator(device=device).manual_seed(16)
-        multi = make_train_multistep(MULTI_K, augment_fn=leaf_device_augment)
-        groups = [_stacked(rng, MULTI_K, device) for _ in range(3)]
-        t0 = time.perf_counter()
-        multi(st, *groups[0], gen)  # K eager steps, then the capture
-        torch.cuda.synchronize()
-        log(f"{tag}: first call (K={MULTI_K} eager steps + capture) "
-            f"{time.perf_counter() - t0:.2f} s; graph pool "
-            f"{multi.pool_bytes / 2**30:.2f} GiB; launches per replay "
-            f"{multi.per_replay}")
-        want = {"fwd_save" + sfx: MULTI_K, "bwd" + sfx: MULTI_K}
-        if multi.per_replay != want:
-            raise AssertionError(f"{tag}: per replay {multi.per_replay}, "
-                                 f"want {want}")
-        twin, step, tgen = _twin(cfg, st, gen, device)
-        _zero_counts()
-        got = multi(st, *groups[1], gen)
-        torch.cuda.synchronize()
-        replay_counts = _counts()
-        ref = [step(twin, groups[1][0][k], groups[1][1][k], tgen)
-               for k in range(MULTI_K)]
-        ref_loss = float(torch.stack([m["loss"] for m in ref]).float().mean())
-        loss_rel = abs(float(got["loss"]) - ref_loss) / abs(ref_loss)
-        correct = (int(got["correct"]), int(sum(int(m["correct"])
-                                                for m in ref)))
-        count = (int(got["count"]), int(sum(int(m["count"]) for m in ref)))
-        worst, equal = 0.0, True
-        twin_params = dict(twin.model.named_parameters())
-        for name, p in st.model.named_parameters():
-            q = twin_params[name]
-            worst = max(worst, float(((p - q).detach().abs()
-                                      / (MULTI_ATOL + MULTI_RTOL * q.abs()))
-                                     .max()))
-            equal = equal and torch.equal(p, q)
-        ok = (st.step == twin.step == 2 * MULTI_K and loss_rel <= MULTI_LOSS_RTOL
-              and correct[0] == correct[1] and count[0] == count[1]
-              and worst <= 1.0 and replay_counts == _no_launches())
-        log(f"{tag}: replay vs {MULTI_K} eager steps from the same state "
-            f"and generator state: step {st.step} vs {twin.step}; loss "
-            f"{float(got['loss']):.6f} vs {ref_loss:.6f} (rel {loss_rel:.2e}, "
-            f"tol {MULTI_LOSS_RTOL:g}); correct {correct[0]} vs "
-            f"{correct[1]}; count {count[0]} vs {count[1]}; parameters "
-            f"worst ratio {worst:.3e} to atol {MULTI_ATOL:g} + rtol "
-            f"{MULTI_RTOL:g} (bit-equal: {equal}); wrapper counts during "
-            f"the replay {replay_counts} -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{tag}: the graph disagrees with eager "
-                                 "steps")
-        del twin, ref
-        busy, seen = _profiled(lambda: multi(st, *groups[2], gen))
-        log(f"{tag}: profiler, one replay: {seen} kernel launches, device "
-            f"busy {busy:.3f} ms")
-        if {k: v for k, v in seen.items() if v} != want:
-            raise AssertionError(f"{tag}: the profiler saw {seen}, want "
-                                 f"{want} per replay")
-        results[dtype] = {"per_replay": multi.per_replay}
-        del st, multi, groups
+        results[dtype] = {"per_replay": _multistep_check(device, state, cfg,
+                                                         sfx, tag)}
         torch.cuda.empty_cache()
         results[dtype]["timing"] = _multistep_timing(device, state, cfg, tag)
     return results
 
 
-def _multistep_timing(device, state, cfg, tag: str) -> dict:
-    """Host-clock ms per step, device-busy ms per step and the idle share
-    at K = 1 (eager make_train_step) and K = 4, 8 (graph)."""
+def _multistep_check(device, state, cfg, sfx: str, tag: str,
+                     k: int = MULTI_K) -> dict:
+    """A K-step graph of ``cfg``'s train step from the weights ``state``
+    (B=256, augment on) against K eager steps from the same state and
+    generator state, within the multistep bounds; one saving-forward and
+    one backward launch of the ``sfx`` kernels per step in a replay, in
+    the runner's record and in the profiler. Returns the per-replay
+    launches."""
+    from leaf_tpu_torch.data import leaf_device_augment
+    from leaf_tpu_torch.training import make_train_multistep
+    rng = np.random.RandomState(16)
+    st, _ = _trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS,
+                     capturable=True)
+    gen = torch.Generator(device=device).manual_seed(16)
+    multi = make_train_multistep(k, augment_fn=leaf_device_augment)
+    groups = [_stacked(rng, k, device) for _ in range(3)]
+    t0 = time.perf_counter()
+    multi(st, *groups[0], gen)  # K eager steps, then the capture
+    torch.cuda.synchronize()
+    log(f"{tag}: first call (K={k} eager steps + capture) "
+        f"{time.perf_counter() - t0:.2f} s; graph pool "
+        f"{multi.pool_bytes / 2**30:.2f} GiB; launches per replay "
+        f"{multi.per_replay}")
+    want = {"fwd_save" + sfx: k, "bwd" + sfx: k}
+    if multi.per_replay != want:
+        raise AssertionError(f"{tag}: per replay {multi.per_replay}, "
+                             f"want {want}")
+    twin, step, tgen = _twin(cfg, st, gen, device)
+    _zero_counts()
+    got = multi(st, *groups[1], gen)
+    torch.cuda.synchronize()
+    replay_counts = _counts()
+    ref = [step(twin, groups[1][0][i], groups[1][1][i], tgen)
+           for i in range(k)]
+    ref_loss = float(torch.stack([m["loss"] for m in ref]).float().mean())
+    loss_rel = abs(float(got["loss"]) - ref_loss) / abs(ref_loss)
+    correct = (int(got["correct"]), int(sum(int(m["correct"])
+                                            for m in ref)))
+    count = (int(got["count"]), int(sum(int(m["count"]) for m in ref)))
+    worst, equal = 0.0, True
+    twin_params = dict(twin.model.named_parameters())
+    for name, p in st.model.named_parameters():
+        q = twin_params[name]
+        worst = max(worst, float(((p - q).detach().abs()
+                                  / (MULTI_ATOL + MULTI_RTOL * q.abs()))
+                                 .max()))
+        equal = equal and torch.equal(p, q)
+    ok = (st.step == twin.step == 2 * k and loss_rel <= MULTI_LOSS_RTOL
+          and correct[0] == correct[1] and count[0] == count[1]
+          and worst <= 1.0 and replay_counts == _no_launches())
+    log(f"{tag}: replay vs {k} eager steps from the same state "
+        f"and generator state: step {st.step} vs {twin.step}; loss "
+        f"{float(got['loss']):.6f} vs {ref_loss:.6f} (rel {loss_rel:.2e}, "
+        f"tol {MULTI_LOSS_RTOL:g}); correct {correct[0]} vs "
+        f"{correct[1]}; count {count[0]} vs {count[1]}; parameters "
+        f"worst ratio {worst:.3e} to atol {MULTI_ATOL:g} + rtol "
+        f"{MULTI_RTOL:g} (bit-equal: {equal}); wrapper counts during "
+        f"the replay {replay_counts} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: the graph disagrees with eager "
+                             "steps")
+    del twin, ref
+    busy, seen, _ = _profiled(lambda: multi(st, *groups[2], gen))
+    log(f"{tag}: profiler, one replay: {seen} kernel launches, device "
+        f"busy {busy:.3f} ms")
+    if {name: v for name, v in seen.items() if v} != want:
+        raise AssertionError(f"{tag}: the profiler saw {seen}, want "
+                             f"{want} per replay")
+    return multi.per_replay
+
+
+def _multistep_timing(device, state, cfg, tag: str, ks=(1, 4, 8)) -> dict:
+    """Host-clock ms per step, device-busy ms per step, the idle share and
+    the fused frontend kernels' share of the device time at K = 1 (eager
+    make_train_step) and the other ``ks`` (graph)."""
     from leaf_tpu_torch.data import leaf_device_augment
     from leaf_tpu_torch.training import make_train_multistep
     out = {}
-    for k in (1, 4, 8):
+    for k in ks:
         st, step = _trainer(cfg, state, device, True, STEPS_PER_EPOCH,
                             EPOCHS, capturable=k > 1)
         gen = torch.Generator(device=device).manual_seed(17)
@@ -1357,20 +1433,436 @@ def _multistep_timing(device, state, cfg, tag: str) -> dict:
             call()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3 / k)
-        busy, _ = _profiled(call)
+        busy, _, front = _profiled(call)
         med = float(np.median(times))
-        out[k] = {"ms": med, "busy_ms": busy / k, "pool_bytes": pool}
+        out[k] = {"ms": med, "busy_ms": busy / k, "pool_bytes": pool,
+                  "frontend_ms": front / k}
         log(f"{tag} timing K={k} ({'eager' if k == 1 else 'graph'}): "
             f"median {med:.3f} ms/step ({TRAIN_B / med * 1e3:.1f} clips/s), "
             f"min {min(times):.3f}, max {max(times):.3f} ({TIMED_STEPS} "
             f"calls after 3, host clock); device busy {busy / k:.3f} "
-            f"ms/step, idle {1 - busy / k / med:.1%}; graph pool "
-            f"{pool / 2**30:.2f} GiB")
+            f"ms/step, idle {1 - busy / k / med:.1%}; frontend kernels "
+            f"{front / k:.3f} ms/step ({front / busy:.1%} of busy); graph "
+            f"pool {pool / 2**30:.2f} GiB")
         del st, step, call
         if k > 1:
             del multi
         torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------------ [zoo]
+# The rest of the model zoo on the fused frontend kernels. The ResNet-18
+# recipes are read from the checkout's cfgs as the CLIs read them.
+R18_CFG_FILE = "speechcommands/resnet-18-leaf-default.cfg"
+AUDIOSET_CFG_FILE = "audioset/resnet-18-leaf-default.cfg"
+# AudioSet's balanced train split (~22 k clips) at the cfg's B=128
+AUDIOSET_STEPS_PER_EPOCH, AUDIOSET_EPOCHS = 22160 // AUDIOSET_B, 60
+ZOO_B = 32
+# remat / memory_efficient on against off on the card, one train step from
+# the same weights and generator state: each gradient and running stat
+# within REMAT_TOL of its norm (cuDNN's weight gradients sum in no fixed
+# order; the recompute repeats the forward's kernels on the same inputs)
+REMAT_TOL = 1e-5
+# fused vs 'off' through a ReLU backbone: one step's gradients from the
+# same weights (Adam's first updates are lr·sign(g) and would turn float
+# noise into whole-step differences). A relu or max-pool input that sits
+# within float noise of its kink takes the other branch under the other
+# frontend's last bits, and moves the gradient of every layer below it.
+# On the H100 the worst frontend leaf reads 1.16e-2 (speechcommands) and
+# 1.55e-2 (AudioSet shape); 'off' against 'off' with the input scaled by
+# 1 + 1e-6·N(0, 1) reads 6.6e-3 and 1.45e-2; d_bank or d_windows scaled
+# by 1.05 reads 4.9e-2 to 5.5e-2 on its leaf, zeroed 1.0. The whole model's gradient
+# and the running stats after the step's forward keep UPDATE_TOL and
+# STATS_TOL.
+FRONTEND_GRAD_TOL = 4e-2
+ZOO_REST = (
+    ("resnet50", {"arch": "resnet", "model_depth": 50}),
+    ("resnet18 vlad", {"arch": "resnet", "model_depth": 18, "pool": "vlad"}),
+    ("cifar_resnet20", {"arch": "cifar_resnet", "model_depth": 20}),
+    # memory_efficient is a constructor argument only (not read from the
+    # cfg, as in the JAX package): set on the built model, see _set_remat
+    ("densenet121 memory_efficient", {"arch": "densenet",
+                                      "model_depth": 121}),
+    ("efficientnet-b0 remat", {"arch": "efficientnet", "model_depth": "b0",
+                               "remat": True}),
+)
+
+
+def _cfg(name: str) -> dict:
+    """``cfgs/<name>`` of the checkout, as the CLIs read it."""
+    from leaf_tpu_torch.training.config import get_config
+    here = os.path.dirname(os.path.abspath(__file__))
+    return get_config(os.path.join(here, "cfgs", name))
+
+
+def _off(cfg: dict) -> dict:
+    return {**cfg, "frontend": {**cfg["frontend"], "use_fused_kernel": "off"}}
+
+
+def phase_zoo_serving(device, tmp):
+    """The speechcommands ResNet-18 cfg through ``ServingModel`` (buckets
+    8, 64), f32 and bf16, and from ``save_exported`` artifacts (f32):
+    one primal launch of the dtype's kernel per bucket forward; logits
+    against 'off' on the card and the CPU (f32), against f32 (bf16, unit
+    BN statistics) and against the live module (artifact); latency per
+    bucket, live and artifact in turns. Returns the BN-calibrated
+    weights."""
+    from leaf_tpu_torch.models import Classifier
+    from leaf_tpu_torch.models.common import set_batch_norm_stats_
+    from leaf_tpu_torch.serving import ServingModel, save_exported
+    cfg = _cfg(R18_CFG_FILE)
+    rng = np.random.RandomState(21)
+    clf = Classifier(cfg, device=device,
+                     generator=torch.Generator().manual_seed(0)).eval()
+    unit = {k: v.clone() for k, v in clf.state_dict().items()}
+    set_batch_norm_stats_(clf, torch.from_numpy(
+        (rng.randn(64, 16000) * 0.1).astype(np.float32)).to(device))
+    state = {k: v.clone() for k, v in clf.state_dict().items()}
+    requests = {n: (rng.randn(n, 16000) * 0.1).astype(np.float32)
+                for n in REQUEST_SIZES}
+    forwards = sum(-(-n // BUCKETS[-1]) for n in REQUEST_SIZES)
+    for dtype, run_cfg, weights, sfx, ref_cfg, tol in (
+            ("f32", cfg, state, "", _off(cfg), LOGIT_TOL),
+            ("bf16", _bf16(cfg), unit, "_bf16", cfg, BF16_LOGIT_TOL)):
+        tag = f"[zoo] resnet-18 serving {dtype}"
+        server = ServingModel(run_cfg, state_dict=weights, device=device,
+                              batch_sizes=BUCKETS)
+        _zero_counts()
+        outs = {n: server(requests[n]) for n in REQUEST_SIZES}
+        torch.cuda.synchronize()
+        counts = _counts()
+        log(f"{tag}: requests {REQUEST_SIZES} -> {forwards} bucket "
+            f"forwards, kernel launches {counts}")
+        if counts != {**_no_launches(), "fwd" + sfx: forwards}:
+            raise AssertionError(f"{tag}: expected one primal launch per "
+                                 f"forward ({forwards}), counted {counts}")
+        ref = ServingModel(ref_cfg, state_dict=weights, device=device,
+                           batch_sizes=BUCKETS)
+        cpu = (ServingModel(_off(cfg), state_dict=weights, device="cpu",
+                            batch_sizes=BUCKETS) if dtype == "f32" else None)
+        for n in REQUEST_SIZES:
+            got, want = outs[n], ref(requests[n])
+            if (got.shape != (n, 35) or got.dtype != np.float32
+                    or not np.isfinite(got).all()):
+                raise AssertionError(f"{tag}: bad logits for {n} clips")
+            rel = float(np.abs(got - want).max() / np.abs(want).max())
+            line = (f"{tag} n={n}: max|logit| {np.abs(want).max():.3e}, "
+                    f"vs {'off' if dtype == 'f32' else 'f32'} rel "
+                    f"{rel:.3e}")
+            if cpu is not None and n == REQUEST_SIZES[0]:
+                cpu_rel = float(np.abs(got - cpu(requests[n])).max()
+                                / np.abs(want).max())
+                line += f", card vs CPU rel {cpu_rel:.3e}"
+                rel = max(rel, cpu_rel)
+            log(line + f" (tol {tol:g})")
+            if rel > tol:
+                raise AssertionError(f"{tag}: logits disagree for {n} "
+                                     f"clips: {rel}")
+        del server, ref, cpu
+
+    out = os.path.join(tmp, "serving_resnet18")
+    t0 = time.perf_counter()
+    save_exported(out, cfg, state_dict=state, device=device,
+                  batch_sizes=BUCKETS)
+    t_export = time.perf_counter() - t0
+    art = ServingModel.load(out, device=device)
+    live = ServingModel(cfg, state_dict=state, device=device,
+                        batch_sizes=BUCKETS)
+    _zero_counts()
+    outs = {n: art(requests[n]) for n in REQUEST_SIZES}
+    torch.cuda.synchronize()
+    counts = _counts()
+    worst = max(float(np.abs(outs[n] - live(requests[n])).max()
+                      / np.abs(outs[n]).max()) for n in REQUEST_SIZES)
+    log(f"[zoo] resnet-18 export: buckets {BUCKETS} in {t_export:.1f} s; "
+        f"kernel launches {counts}; artifact vs live max|a-b|/max|a| "
+        f"{worst:.3e} (tol {ARTIFACT_TOL:g})")
+    if counts != {**_no_launches(), "fwd": forwards} or worst > ARTIFACT_TOL:
+        raise AssertionError("[zoo] resnet-18 artifact disagrees")
+    for bucket in BUCKETS:
+        req = (rng.randn(bucket, 16000) * 0.1).astype(np.float32)
+        lat = {}
+        for name, server in (("artifact", art), ("live", live),
+                             ("live ", live), ("artifact ", art)):
+            lat.setdefault(name.strip(), []).append(_latency(server, req))
+        log(f"[zoo] resnet-18 f32 bucket {bucket}: median latency artifact "
+            f"{' / '.join(f'{v:.3f}' for v in lat['artifact'])} ms, live "
+            f"{' / '.join(f'{v:.3f}' for v in lat['live'])} ms (host clock, "
+            f"20 requests each, artifact-live-live-artifact)")
+        for name, server in (("artifact", art), ("live", live)):
+            profile_requests(server, req, float(np.mean(lat[name])),
+                             f"resnet-18 {name} f32 bucket {bucket}")
+    return state
+
+
+def phase_zoo_train(device, state):
+    """The speechcommands ResNet-18 recipe at B=256: 5 steps f32 and
+    bf16 (one saving-forward and one backward launch per step), 3 steps
+    fused against 'off' on the card, a K=4 graph against 4 eager steps,
+    and ms per step eager and at K=4 with the device's busy time, idle
+    share and the frontend kernels' share."""
+    cfg = _cfg(R18_CFG_FILE)
+    x, y = _batch(np.random.RandomState(22), TRAIN_B, device)
+    for dtype, run_cfg, sfx in (("f32", cfg, ""), ("bf16", _bf16(cfg),
+                                                   "_bf16")):
+        st, step = _trainer(run_cfg, state, device, True, STEPS_PER_EPOCH,
+                            EPOCHS)
+        gen = torch.Generator(device=device).manual_seed(22)
+        _zero_counts()
+        losses = [float(step(st, x, y, gen)["loss"])
+                  for _ in range(TRAIN_STEPS)]
+        counts = _counts()
+        log(f"[zoo] resnet-18 train {dtype} B={TRAIN_B} x 16000, "
+            f"{TRAIN_STEPS} steps (augment on): losses "
+            f"{', '.join(f'{v:.6f}' for v in losses)}; kernel launches "
+            f"{counts}")
+        if (not all(np.isfinite(losses)) or counts != {
+                **_no_launches(), "fwd_save" + sfx: TRAIN_STEPS,
+                "bwd" + sfx: TRAIN_STEPS}):
+            raise AssertionError(f"[zoo] resnet-18 train {dtype} failed")
+        del st, step
+    torch.cuda.empty_cache()
+    _fused_vs_off("[zoo] resnet-18", {**cfg, "opt": {**cfg["opt"],
+                                                      "warmup_epochs": 1}},
+                  state, x, y, 3, 2, 10)
+    torch.cuda.empty_cache()
+    _multistep_check(device, state, cfg, "", "[zoo] resnet-18 multistep f32")
+    torch.cuda.empty_cache()
+    timing = {dtype: _multistep_timing(device, state, run_cfg,
+                                       f"[zoo] resnet-18 {dtype}", ks=(1, 4))
+              for dtype, run_cfg in (("f32", cfg), ("bf16", _bf16(cfg)))}
+    _profile_step("[zoo] resnet-18 f32 eager step", cfg, state, x, y)
+    return timing
+
+
+def _profile_step(tag: str, cfg, state, x, y) -> None:
+    """The kernels that take the most device time in one eager train step
+    (augment on), by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    st, step = _trainer(cfg, state, x.device, True, STEPS_PER_EPOCH, EPOCHS)
+    gen = torch.Generator(device=x.device).manual_seed(8)
+    for _ in range(3):
+        step(st, x, y, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(st, x, y, gen)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages() if _is_device_work(e)),
+                     reverse=True)
+    log(f"{tag}: device busy {sum(k[0] for k in kernels):.3f} ms in "
+        f"{sum(k[1] for k in kernels)} kernels; the largest:")
+    for ms, count, name in kernels[:8]:
+        log(f"[profile]   {ms:.3f} ms  x{count}  {name[:90]}")
+
+
+def _fused_vs_off(tag: str, cfg, state, x, y, steps: int,
+                  steps_per_epoch: int, epochs: int) -> None:
+    """``steps`` train steps (augment off) of ``cfg`` with the fused
+    kernels and with ``use_fused_kernel='off'`` from the weights
+    ``state`` on the batch (x, y): each step's loss within LOSS_TOL; the
+    first step's gradients (whole model within UPDATE_TOL, each frontend
+    leaf within FRONTEND_GRAD_TOL) and running stats (STATS_TOL of each
+    one's norm), all of the same weights."""
+    runs = []
+    for run_cfg in (cfg, _off(cfg)):
+        st, step = _trainer(run_cfg, state, x.device, False, steps_per_epoch,
+                            epochs)
+        losses = [float(step(st, x, y)["loss"])]
+        first = _grads_and_stats(st.model)
+        losses += [float(step(st, x, y)["loss"]) for _ in range(steps - 1)]
+        runs.append((losses,) + first)
+        del st, step
+        torch.cuda.empty_cache()
+    (la, ga, sa), (lb, gb, sb) = runs
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
+    front = _rel_by_leaf({k: v for k, v in ga.items()
+                          if k.startswith("features.")},
+                         {k: v for k, v in gb.items()
+                          if k.startswith("features.")})
+    worst = max(front, key=front.get)
+    num = sum(float((ga[k] - gb[k]).norm() ** 2) for k in gb)
+    den = sum(float(gb[k].norm() ** 2) for k in gb)
+    grad_rel = (num / den) ** 0.5
+    stats = _rel_by_leaf(sa, sb)
+    stats_key = max(stats, key=stats.get)
+    ok = (loss_rel <= LOSS_TOL and len(front) == 7
+          and front[worst] <= FRONTEND_GRAD_TOL and grad_rel <= UPDATE_TOL
+          and stats[stats_key] <= STATS_TOL)
+    log(f"{tag} fused vs 'off' on the card, B={x.shape[0]}, {steps} "
+        f"step(s): losses {', '.join(f'{v:.6f}' for v in la)} vs "
+        f"{', '.join(f'{v:.6f}' for v in lb)} (max rel {loss_rel:.3e}, tol "
+        f"{LOSS_TOL:g}); first step's gradient rel-norm {grad_rel:.3e} "
+        f"(tol {UPDATE_TOL:g}), worst frontend leaf {worst} "
+        f"{front[worst]:.3e} (tol {FRONTEND_GRAD_TOL:g}); running stats "
+        f"worst {stats_key} {stats[stats_key]:.3e} of its norm (tol "
+        f"{STATS_TOL:g}) -> {'ok' if ok else 'FAIL'}")
+    log(f"{tag} frontend leaves' gradients: " + ", ".join(
+        f"{k[len('features.'):]} {v:.3e}" for k, v in front.items()))
+    if not ok:
+        raise AssertionError(f"{tag}: fused and 'off' disagree")
+
+
+def _grads_and_stats(model) -> tuple:
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    stats = {k: t.clone() for k, t in model.state_dict().items()
+             if "running" in k}
+    return grads, stats
+
+
+def _rel_by_leaf(a: dict, b: dict) -> dict:
+    """‖a − b‖ / ‖b‖ for each key (both dicts hold the same keys)."""
+    if a.keys() != b.keys():
+        raise AssertionError(f"different leaves: {set(a) ^ set(b)}")
+    return {k: float((a[k].float() - b[k].float()).norm()
+                     / max(float(b[k].float().norm()), 1e-30)) for k in b}
+
+
+def _worst_rel(a: dict, b: dict) -> tuple:
+    """(worst ‖a − b‖ / ‖b‖ over the keys, its key)."""
+    rel = _rel_by_leaf(a, b)
+    key = max(rel, key=rel.get)
+    return rel[key], key
+
+
+def phase_zoo_audioset(device):
+    """The AudioSet ResNet-18 cfg (64 filters, 5 s clips, B=128,
+    multilabel, 'step' schedule): 3 steps with finite losses and one
+    saving-forward and one backward launch each; 1 step fused against
+    'off' on the card (``_fused_vs_off``)."""
+    from leaf_tpu_torch.models import Classifier
+    cfg = _cfg(AUDIOSET_CFG_FILE)
+    n_classes = cfg["model"]["num_classes"]
+    state = Classifier(cfg, device=device,
+                       generator=torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.RandomState(23)
+    x = torch.from_numpy((rng.randn(AUDIOSET_B, AUDIOSET_T) * 0.1)
+                         .astype(np.float32)).to(device)
+    y = np.zeros((AUDIOSET_B, n_classes), np.float32)
+    y[np.arange(AUDIOSET_B)[:, None],
+      rng.randint(0, n_classes, (AUDIOSET_B, 2))] = 1.0
+    y = torch.from_numpy(y).to(device)
+    st, step = _trainer(cfg, state, device, True, AUDIOSET_STEPS_PER_EPOCH,
+                        AUDIOSET_EPOCHS)
+    gen = torch.Generator(device=device).manual_seed(23)
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = [float(step(st, x, y, gen)["loss"]) for _ in range(3)]
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    counts = _counts()
+    log(f"[zoo] audioset resnet-18 B={AUDIOSET_B} x {AUDIOSET_T}, "
+        f"F={AUDIOSET_F}, {cfg['model']['type']}, 3 steps (augment on): "
+        f"losses {', '.join(f'{v:.6f}' for v in losses)} ({wall:.1f} ms "
+        f"per step, host clock, first steps included); kernel launches "
+        f"{counts}")
+    if (not all(np.isfinite(losses)) or cfg["model"]["type"] != "multilabel"
+            or counts != {**_no_launches(), "fwd_save": 3, "bwd": 3}):
+        raise AssertionError("[zoo] audioset resnet-18 train failed")
+    del st, step
+    torch.cuda.empty_cache()
+    _fused_vs_off("[zoo] audioset resnet-18", cfg, state, x, y, 1,
+                  AUDIOSET_STEPS_PER_EPOCH, AUDIOSET_EPOCHS)
+
+
+def _set_remat(model, on: bool) -> bool:
+    """Turn ``model``'s rematerialisation on or off (EfficientNet's
+    ``remat``, DenseNet's ``memory_efficient`` per dense block); False
+    if it has none."""
+    from leaf_tpu_torch.models.densenet import DenseBlock
+    from leaf_tpu_torch.models.efficientnet import EfficientNet
+    found = False
+    for m in model.modules():
+        if isinstance(m, EfficientNet):
+            m.remat, found = on, True
+        elif isinstance(m, DenseBlock):
+            m.memory_efficient, found = on, True
+    return found
+
+
+def phase_zoo_rest(device):
+    """ResNet-50, ResNet-18 with NetVLAD, CIFAR-ResNet-20, DenseNet-121
+    (memory_efficient) and EfficientNet-b0 (remat) behind the flagship
+    Leaf, B=32 x 16000: eval logits on the card against the CPU; one
+    train step (remat / memory_efficient on against off on the card where
+    the model has it); and b0 with remat as a K=4 CUDA graph against
+    eager steps."""
+    from leaf_tpu_torch.models import Classifier
+    from leaf_tpu_torch.models.common import set_batch_norm_stats_
+    rng = np.random.RandomState(24)
+    x = torch.from_numpy((rng.randn(ZOO_B, 16000) * 0.1).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 35, ZOO_B))
+    for name, spec in ZOO_REST:
+        tag = f"[zoo] {name}"
+        cfg = {**FLAGSHIP_CFG, "model": {**spec, "num_classes": 35}}
+        clf = Classifier(cfg, device=device,
+                         generator=torch.Generator().manual_seed(0)).eval()
+        set_batch_norm_stats_(clf, x.to(device))
+        # copies: the train steps below update the module's own tensors
+        state = {k: v.clone() for k, v in clf.state_dict().items()}
+        cpu = Classifier(cfg, device="cpu").eval()
+        cpu.load_state_dict(state)
+        with torch.no_grad():
+            got = clf(x.to(device)).cpu()
+            want = cpu(x)
+        rel = float((got - want).abs().max() / want.abs().max())
+        log(f"{tag}: eval logits {tuple(got.shape)} card vs CPU max|a-b|/"
+            f"max|b| {rel:.3e} (tol {LOGIT_TOL:g}), max|logit| "
+            f"{float(want.abs().max()):.3e}")
+        if (tuple(got.shape) != (ZOO_B, 35) or not bool(
+                torch.isfinite(got).all()) or rel > LOGIT_TOL):
+            raise AssertionError(f"{tag}: card and CPU disagree")
+        del cpu
+        runs = []
+        # remat on against off with cuDNN's deterministic algorithms: its
+        # unordered weight-gradient and BatchNorm sums would otherwise
+        # differ between any two runs, and a leaf whose gradient is a
+        # near-cancelling sum (DenseNet's norm0 scale) shows it at 1e-2
+        torch.backends.cudnn.deterministic = True
+        for on in ((False, True) if _set_remat(clf, False) else (False,)):
+            _set_remat(clf, on)
+            clf.load_state_dict(state)
+            clf.train()
+            clf.zero_grad(set_to_none=True)
+            gen = torch.Generator(device=device).manual_seed(7)
+            _zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            loss = torch.nn.functional.cross_entropy(
+                clf(x.to(device), gen).float(), y.to(device))
+            loss.backward()
+            counts = _counts()
+            runs.append((float(loss.detach()), *_grads_and_stats(clf),
+                         gen.get_state()))
+            log(f"{tag}: train step (remat {'on' if on else 'off'}): loss "
+                f"{float(loss):.6f}; kernel launches {counts}; peak "
+                f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if (not np.isfinite(float(loss)) or counts != {
+                    **_no_launches(), "fwd_save": 1, "bwd": 1}):
+                raise AssertionError(f"{tag}: train step failed")
+        torch.backends.cudnn.deterministic = False
+        if len(runs) == 2:
+            (la, ga, sa, gsa), (lb, gb, sb, gsb) = runs[1], runs[0]
+            g_rel, g_key = _worst_rel(ga, gb)
+            s_rel, s_key = _worst_rel(sa, sb)
+            loss_rel = abs(la - lb) / abs(lb)
+            same_gen = torch.equal(gsa, gsb)
+            ok = max(g_rel, s_rel, loss_rel) <= REMAT_TOL and same_gen
+            log(f"{tag}: remat on vs off: loss rel {loss_rel:.3e}, worst "
+                f"gradient {g_key} {g_rel:.3e}, worst running stat {s_key} "
+                f"{s_rel:.3e} of its norm (tol {REMAT_TOL:g}); generators "
+                f"alike: {same_gen} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag}: remat changes the step")
+        del clf, runs
+        torch.cuda.empty_cache()
+    # a checkpointed step captured and replayed as a CUDA graph
+    cfg = {**TRAIN_CFG, "model": {**TRAIN_CFG["model"], "remat": True}}
+    state = Classifier(cfg, device=device,
+                       generator=torch.Generator().manual_seed(0)).state_dict()
+    _multistep_check(device, state, cfg, "", "[zoo] efficientnet-b0 remat "
+                     "multistep")
 
 
 # ------------------------------------------------------------------ [cli]
@@ -1392,7 +1884,8 @@ def _tone(rng, c, t):
 
 def _write_tone_task(root: str) -> None:
     """train/val/test manifests of tone WAVs (1 s; the test clips 1–3 s),
-    the label map and the flagship cfg pointing at them."""
+    the label map, and the flagship and speechcommands ResNet-18 cfgs
+    pointing at them."""
     import csv
 
     from leaf_tpu_torch.data import write_wav
@@ -1424,6 +1917,11 @@ def _write_tone_task(root: str) -> None:
                         f'meta_root: "{root}"')
     with open(os.path.join(root, "flagship.cfg"), "w") as f:
         f.write(text)
+    with open(os.path.join(here, "cfgs", R18_CFG_FILE)) as f:
+        text = f.read()
+    with open(os.path.join(root, "resnet18.cfg"), "w") as f:
+        f.write(text.replace('meta_root: "/data/speech_commands/meta"',
+                             f'meta_root: "{root}"'))
 
 
 def _cli(module: str, args, tag: str, sigterm_after_steps: int = 0):
@@ -1692,6 +2190,31 @@ def phase_cli(tmp: str) -> dict:
         f"{epochs[1][3]:.1f} clips/s (K=4, a replay) vs {k1_rate:.1f} "
         f"(K=1, the first run's epoch 1)")
 
+    # the speechcommands ResNet-18 recipe: one epoch, then evaluate
+    rexp = os.path.join(tmp, "exp_resnet18")
+    out, walls["train resnet-18"] = _cli(
+        "train", ["--cfg_file", os.path.join(tmp, "resnet18.cfg"),
+                  "--expdir", rexp, "--num_workers", "4", "--epochs", "1"],
+        "train resnet-18 --epochs 1")
+    repochs = _epoch_lines(out)
+    counts = repochs[-1][4] if len(repochs) == 1 else {}
+    if (len(repochs) != 1 or not np.isfinite(repochs[0][1])
+            or counts.get("fwd_save") != steps or counts.get("bwd") != steps
+            or counts.get("fwd", 0) < val_batches):
+        raise AssertionError(f"train resnet-18: epochs {repochs}")
+    log(f"[cli] train resnet-18: loss {repochs[0][1]}; kernel launches "
+        f"{counts} (saving forward = backward = {steps} steps); train loop "
+        f"{repochs[0][3]:.1f} clips/s")
+    out, walls["evaluate resnet-18"] = _cli(
+        "evaluate", ["--exp_dir", rexp, "--meta_dir", tmp, "--test_csv_name",
+                     "test.csv"], "evaluate (the resnet-18 run)")
+    with open(os.path.join(rexp, "results.txt")) as f:
+        rows = f.read().splitlines()
+    if (len(rows) != 2 or not rows[1].startswith("resnet,")
+            or not 0.0 <= float(rows[1].split(",")[1]) <= 1.0):
+        raise AssertionError(f"evaluate of the resnet-18 run: {rows}")
+    log(f"[cli] evaluate (resnet-18): {rows[1]}")
+
     loader = {(mem, w): _time_loader(cfg, mem, w)
               for mem, w in ((False, 1), (False, 4), (True, 4))}
     for (mem, w), rates in loader.items():
@@ -1741,6 +2264,7 @@ def main() -> int:
     timed("trajectory", phase_trajectory, device, state)
     timing = timed("timing", phase_timings, device,
                    {"f32": server, "bf16": server_bf16})
+    timed("timing-audioset", phase_timing_audioset, device)
     timed("train-timing", phase_train_timing, device, state)
     del server, server_bf16
     torch.cuda.empty_cache()
@@ -1750,6 +2274,14 @@ def main() -> int:
     del leaf
     timed("multistep", phase_multistep, device, state)
     del state
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="leaf_zoo_") as tmp:
+        r18_state = timed("zoo-serving", phase_zoo_serving, device, tmp)
+    timed("zoo-train", phase_zoo_train, device, r18_state)
+    del r18_state
+    torch.cuda.empty_cache()
+    timed("zoo-audioset", phase_zoo_audioset, device)
+    timed("zoo-rest", phase_zoo_rest, device)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="leaf_cli_") as tmp:
         timed("cli", phase_cli, tmp)

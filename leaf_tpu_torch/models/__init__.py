@@ -1,4 +1,5 @@
-"""The classifier zoo, in PyTorch (efficientnet so far)."""
+"""The classifier zoo, in PyTorch: efficientnet, resnet (with NetVLAD),
+cifar_resnet and densenet."""
 
 from leaf_tpu_torch.models.classifier import (  # noqa: F401
     Classifier,

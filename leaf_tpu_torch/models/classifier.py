@@ -5,10 +5,8 @@ reference's models/classifier.py:7-18): the frontend emits (B, frames,
 n_filters); the backbone takes the (B, n_filters, frames, 1) NHWC image.
 Submodules are named ``features`` and ``model`` as in the reference, so
 ``state_dict`` keys read ``features._complex_conv._kernel``,
-``model._blocks.0._depthwise_conv.weight`` and so on.
-
-This slice ports the efficientnet backbone only; the other arches raise
-``NotImplementedError`` until their slice (ROADMAP Queue 1 item 10).
+``model._blocks.0._depthwise_conv.weight``, ``model.layer1.0.conv1.weight``
+and so on.
 """
 
 from __future__ import annotations
@@ -20,48 +18,68 @@ from torch import nn
 
 from leaf_tpu_torch import resolve_device
 from leaf_tpu_torch.frontend.helper import compute_dtype_of, get_frontend
+from leaf_tpu_torch.models import cifar_resnet, densenet, resnet
 from leaf_tpu_torch.models.efficientnet import VALID_MODELS, EfficientNet
 
 __all__ = ["Classifier", "get_classifier"]
 
-# Depths the JAX package accepts per arch (leaf_tpu/models/classifier.py).
-_PENDING_ARCH_DEPTHS = {
-    "densenet": (121, 161, 169, 201),
-    "resnet": (18, 34, 50, 101, 152),
-    "cifar_resnet": (20, 32, 34, 44, 56, 110),
-}
+_DENSENETS = {121: densenet.densenet121, 161: densenet.densenet161,
+              169: densenet.densenet169, 201: densenet.densenet201}
+_RESNETS = {18: resnet.resnet18, 34: resnet.resnet34, 50: resnet.resnet50,
+            101: resnet.resnet101, 152: resnet.resnet152}
+_CIFAR_RESNETS = {20: cifar_resnet.resnet20, 32: cifar_resnet.resnet32,
+                  34: cifar_resnet.resnet34_custom, 44: cifar_resnet.resnet44,
+                  56: cifar_resnet.resnet56, 110: cifar_resnet.resnet110}
+
+
+def _factory(table: dict, depth, arch: str):
+    if depth not in table:
+        raise ValueError(f"Invalid value {depth} of depth for {arch} arch")
+    return table[depth]
 
 
 def get_classifier(opt: dict, device=None,
                    generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Backbone factory (reference: models/model_helper.py:8-95).
+    """Backbone factory (reference: models/model_helper.py:8-95), as the
+    JAX package's ``get_classifier`` dispatches.
 
-    ``opt`` is the config's ``model`` section: arch, model_depth,
-    num_classes. Builds on ``device`` (CUDA unless one is named).
+    ``opt`` is the config's ``model`` section: arch ∈ {densenet, resnet,
+    cifar_resnet, efficientnet}, model_depth, num_classes, pool (resnet
+    18/34/50 only), compute_dtype (every arch), dropout_rate,
+    drop_connect_rate and remat (efficientnet only). Builds on ``device``
+    (CUDA unless one is named), drawing the weights from ``generator``.
     """
+    num_classes = opt["num_classes"]
     arch = opt["arch"]
-    pending = ("densenet" if "densenet" in arch else arch)
-    if pending in _PENDING_ARCH_DEPTHS:
+    kw = {"compute_dtype": compute_dtype_of(opt),
+          "device": resolve_device(device), "generator": generator}
+    if "densenet" in arch:
+        make = _factory(_DENSENETS, opt["model_depth"], "densenet")
+        return make(num_classes=num_classes, **kw)
+    if arch == "resnet":
         depth = opt["model_depth"]
-        if depth not in _PENDING_ARCH_DEPTHS[pending]:
-            raise ValueError(
-                f"Invalid value {depth} of depth for {pending} arch")
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: the rest of the model zoo is a "
-            "later slice of the port (ROADMAP Queue 1 item 10)")
+        make = _factory(_RESNETS, depth, "resnet")
+        if depth in (18, 34, 50):
+            kw["pool"] = opt.get("pool", "avgpool")
+        return make(num_classes=num_classes, **kw)
+    if arch == "cifar_resnet":
+        make = _factory(_CIFAR_RESNETS, opt["model_depth"], "cifar_resnet")
+        return make(num_classes=num_classes, **kw)
     if arch != "efficientnet":
         raise ValueError(f"Unsupported value {arch} for opt['arch']")
     variant = opt["model_depth"]  # e.g. 'b0'
     if f"efficientnet-{variant}" not in VALID_MODELS:
         raise ValueError(
             f"Invalid value {variant} of depth for efficientnet arch")
-    kw = {k: float(opt[k]) for k in ("dropout_rate", "drop_connect_rate")
-          if k in opt}
+    # optional rate overrides, mirroring the reference's from_name
+    # override_params (model.py:324-334)
+    for k in ("dropout_rate", "drop_connect_rate"):
+        if k in opt:
+            kw[k] = float(opt[k])
+    if "remat" in opt:
+        kw["remat"] = bool(opt["remat"])
     return EfficientNet(model_name=f"efficientnet-{variant}",
-                        num_classes=opt["num_classes"],
-                        compute_dtype=compute_dtype_of(opt),
-                        device=resolve_device(device), generator=generator,
-                        **kw)
+                        num_classes=num_classes, **kw)
 
 
 class Classifier(nn.Module):

@@ -8,10 +8,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["BatchNorm2d", "Conv2d", "Conv2dSame", "drop_connect",
-           "dropout", "global_avg_pool", "lecun_normal_init_", "sigmoid",
-           "silu", "silu_mean"]
+__all__ = ["BatchNorm2d", "Conv2d", "Conv2dSame", "apply_keep",
+           "bn_scale_normal_", "dense", "dropout", "global_avg_pool",
+           "keep_mask", "kaiming_normal_fan_out_", "lecun_normal_",
+           "lecun_normal_init_", "max_pool_same", "remat", "sigmoid", "silu",
+           "silu_mean"]
 
 # the standard deviation of a unit normal truncated at ±2 (jax.nn's
 # variance_scaling divides by it so that the truncated draw keeps its scale)
@@ -33,23 +36,29 @@ class BatchNorm2d(nn.BatchNorm2d):
     running-stat update and the normalisation run in f32 (a bf16 input is
     widened), and the output is rounded to ``out_dtype`` (None: the
     input's dtype).
+
+    ``update_stats`` False normalises with the batch statistics without
+    touching the running ones: ``remat``'s recompute, which Flax's
+    ``nn.remat`` does not let update them a second time.
     """
 
     def __init__(self, *args, out_dtype: Optional[torch.dtype] = None,
                  **kwargs):
         super().__init__(*args, **kwargs)
         self.out_dtype = out_dtype
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out_dtype = self.out_dtype or x.dtype
         x = x.float()
         if not self.training:
             return super().forward(x).to(out_dtype)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
+        if self.update_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps).to(out_dtype)
 
@@ -117,11 +126,19 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * sigmoid(x)
 
 
-def _keep_mask(shape, rate: float, x: torch.Tensor,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Bernoulli(1 − rate) as ``uniform < 1 − rate``, as jax.random does."""
+def keep_mask(shape, rate: float, x: torch.Tensor,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Bernoulli(1 − rate) as ``uniform < 1 − rate``, as jax.random does,
+    on x's device."""
     return torch.rand(shape, generator=generator, device=x.device,
                       dtype=torch.float32) < 1.0 - rate
+
+
+def apply_keep(x: torch.Tensor, keep: torch.Tensor, rate: float
+               ) -> torch.Tensor:
+    """Kept values scaled by 1/(1 − rate), the others zero (``keep``
+    broadcasts against x)."""
+    return torch.where(keep, x / _weak(1.0 - rate, x), torch.zeros_like(x))
 
 
 def _weak(value: float, x: torch.Tensor) -> torch.Tensor:
@@ -130,32 +147,65 @@ def _weak(value: float, x: torch.Tensor) -> torch.Tensor:
     return torch.full((), value, dtype=x.dtype, device=x.device)
 
 
-def drop_connect(x: torch.Tensor, rate: float,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Stochastic depth: drop the whole residual branch per sample.
-
-    Bernoulli(keep = 1 − rate) per batch element, kept rows scaled by
-    1/keep (the JAX package's ``drop_connect``, after reference
-    models/efficientnet/utils.py:129-154). ``generator`` lives on x's
-    device; None takes that device's default generator.
-    """
-    keep = _keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), rate, x, generator)
-    return torch.where(keep, x / _weak(1.0 - rate, x), torch.zeros_like(x))
-
-
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Elementwise dropout as ``flax.linen.Dropout``: keep with
     probability 1 − rate, kept values scaled by 1/(1 − rate)."""
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = _keep_mask(x.shape, rate, x, generator)
-    return torch.where(keep, x / _weak(1.0 - rate, x), torch.zeros_like(x))
+    return apply_keep(x, keep_mask(x.shape, rate, x, generator), rate)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: torch.Tensor) -> torch.Tensor:
+    """x @ weight.T + bias at x's dtype, the product and the sum each
+    rounded to it (Flax's ``Dense``; the parameters stay f32)."""
+    return F.linear(x, weight.to(x.dtype)) + bias.to(x.dtype)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool2d((1,1)) + flatten: (B, C, H, W) → (B, C)."""
     return x.mean(dim=(2, 3))
+
+
+def max_pool_same(x: torch.Tensor, window: int = 3, stride: int = 2,
+                  pad: int = 1) -> torch.Tensor:
+    """3×3/2 max-pool with torch-style symmetric padding (pad=1), padded
+    with −inf (the JAX package's ``max_pool_same``)."""
+    return F.max_pool2d(x, window, stride, pad)
+
+
+def remat(module: nn.Module, fn, *args) -> torch.Tensor:
+    """``fn(*args)``, a computation of ``module``, with its activations
+    recomputed in the backward
+    instead of saved (``torch.utils.checkpoint``, non-reentrant), as
+    Flax's ``nn.remat`` does it.
+
+    Two things differ from a plain checkpoint. The recompute leaves the
+    running statistics of every ``BatchNorm2d`` below ``module`` as the
+    forward left them (it normalises with the same batch statistics).
+    And nothing random may run inside: the caller draws dropout and
+    drop-connect masks before and passes them in, so the recompute uses
+    the same masks and the generator advances once (torch's
+    ``preserve_rng_state`` covers only the default generators, so it is
+    off).
+    """
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    calls = []
+
+    def run(*inputs):
+        recompute = bool(calls)
+        calls.append(recompute)
+        for m in bns:
+            m.update_stats = not recompute
+        try:
+            return fn(*inputs)
+        finally:
+            for m in bns:
+                m.update_stats = True
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def silu_mean(x: torch.Tensor) -> torch.Tensor:
@@ -191,6 +241,54 @@ def set_batch_norm_stats_(model: nn.Module, x: torch.Tensor) -> None:
             h.remove()
 
 
+def _drawn(shape, draw, generator, like: torch.Tensor) -> torch.Tensor:
+    """``draw(t, generator)`` into a new CPU tensor of ``shape``, then to
+    ``like``'s device and dtype: a seed gives the same numbers on every
+    device."""
+    t = torch.empty(shape, dtype=torch.float32)
+    draw(t, generator)
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+@torch.no_grad()
+def kaiming_normal_fan_out_(weight: torch.Tensor,
+                            generator: Optional[torch.Generator] = None
+                            ) -> torch.Tensor:
+    """He-normal in fan-out mode (the JAX package's
+    ``kaiming_normal_fan_out``; reference models/resnet.py:104-105): an
+    untruncated N(0, 2/fan_out) with fan_out = O·kH·kW for a conv weight
+    (O, I, kH, kW) and O for a linear weight (O, I)."""
+    std = math.sqrt(2.0 / (weight.shape[0] * weight[0][0].numel()))
+    return weight.copy_(_drawn(
+        weight.shape, lambda t, g: t.normal_(0.0, std, generator=g),
+        generator, weight))
+
+
+@torch.no_grad()
+def bn_scale_normal_(weight: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     mean: float = 1.0, std: float = 0.02) -> torch.Tensor:
+    """BatchNorm scale ~ N(mean, std) (the JAX package's
+    ``bn_scale_normal``; reference models/resnet.py:106-107)."""
+    return weight.copy_(_drawn(
+        weight.shape, lambda t, g: t.normal_(mean, std, generator=g),
+        generator, weight))
+
+
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """Flax's default ``lecun_normal()`` kernel init: a normal truncated
+    at ±2σ with σ = √(1/fan_in)/0.87962566, which keeps the variance at
+    1/fan_in (fan_in = I·kH·kW of a conv weight, I of a linear one)."""
+    sd = math.sqrt(1.0 / weight[0].numel()) / _TRUNC_NORMAL_STD
+    return weight.copy_(_drawn(
+        weight.shape, lambda t, g: nn.init.trunc_normal_(
+            t, 0.0, sd, -2.0 * sd, 2.0 * sd, generator=g),
+        generator, weight))
+
+
 @torch.no_grad()
 def lecun_normal_init_(module: nn.Module,
                        generator: Optional[torch.Generator] = None) -> None:
@@ -204,11 +302,6 @@ def lecun_normal_init_(module: nn.Module,
     """
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            sd = math.sqrt(1.0 / fan_in) / _TRUNC_NORMAL_STD
-            w = torch.empty(m.weight.shape, dtype=m.weight.dtype)
-            nn.init.trunc_normal_(w, 0.0, sd, -2.0 * sd, 2.0 * sd,
-                                  generator=generator)
-            m.weight.copy_(w)
+            lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()

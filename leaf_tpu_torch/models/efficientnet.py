@@ -20,6 +20,11 @@ the ``generator`` passed to ``forward`` (None: the device's default
 generator); its numbers differ from the JAX package's PRNG streams, so
 the tests hold them by their distributions.
 
+``remat=True`` recomputes each MBConv block's activations in the
+backward instead of saving them (the JAX package's ``nn.remat`` per
+block, ``common.remat``): the same masks, the same running statistics
+and the same gradients as without it, for less memory.
+
 ``compute_dtype=torch.bfloat16`` is the JAX package's ``dtype=bfloat16``
 as XLA computes it: the image is cast once; each conv sums its bf16
 products in f32 and hands the f32 result to its BatchNorm, which
@@ -38,13 +43,12 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from leaf_tpu_torch.models.common import (BatchNorm2d, Conv2d, Conv2dSame,
-                                          drop_connect, dropout,
-                                          lecun_normal_init_, sigmoid, silu,
-                                          silu_mean)
+                                          apply_keep, dense, dropout,
+                                          keep_mask, lecun_normal_init_, remat,
+                                          sigmoid, silu, silu_mean)
 
 __all__ = [
     "BlockArgs",
@@ -176,13 +180,6 @@ def get_model_params(model_name: str, num_classes: int = 1000,
     return blocks, gp
 
 
-def _dense(x: torch.Tensor, weight: torch.Tensor,
-           bias: torch.Tensor) -> torch.Tensor:
-    """x @ weight.T + bias at x's dtype, the product and the sum each
-    rounded to it (Flax's ``Dense`` and ``_PointwiseDense``)."""
-    return F.linear(x, weight.to(x.dtype)) + bias.to(x.dtype)
-
-
 def _bn(channels: int, momentum: float, eps: float, device,
         dtype: torch.dtype) -> BatchNorm2d:
     # Flax's momentum m keeps m of the old running value; torch's keeps 1 − m.
@@ -220,8 +217,29 @@ class MBConvBlock(nn.Module):
                                     device=device)
         self._bn2 = bn(ba.output_filters)
 
+    @property
+    def has_skip(self) -> bool:
+        ba = self.block_args
+        return (ba.id_skip and ba.stride == 1
+                and ba.input_filters == ba.output_filters)
+
+    def drop_connect_mask(self, x: torch.Tensor, drop_connect_rate: float,
+                          generator: Optional[torch.Generator]
+                          ) -> Optional[torch.Tensor]:
+        """The (B, 1, 1, 1) keep mask of stochastic depth for input x,
+        drawn from ``generator`` (Bernoulli(1 − rate) per batch element,
+        after reference models/efficientnet/utils.py:129-154); None where
+        the block drops nothing (eval mode, rate 0, no identity skip)."""
+        if not (self.training and drop_connect_rate and self.has_skip):
+            return None
+        return keep_mask((x.shape[0], 1, 1, 1), drop_connect_rate, x,
+                         generator)
+
     def forward(self, x: torch.Tensor, drop_connect_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The block; ``keep`` is its drop-connect mask, drawn before
+        (``drop_connect_mask``; None: no drop), so that a recompute under
+        ``remat`` uses the same one."""
         ba = self.block_args
         inputs = x
         if ba.expand_ratio != 1:
@@ -230,18 +248,17 @@ class MBConvBlock(nn.Module):
         if self.has_se:
             # spatial mean of silu(x) → 1×1 convs applied to the (B, C)
             # vector as dense layers → gate on silu(x)
-            se = silu(_dense(silu_mean(x), self._se_reduce.weight.flatten(1),
-                             self._se_reduce.bias))
-            se = _dense(se, self._se_expand.weight.flatten(1),
-                        self._se_expand.bias)
+            se = silu(dense(silu_mean(x), self._se_reduce.weight.flatten(1),
+                            self._se_reduce.bias))
+            se = dense(se, self._se_expand.weight.flatten(1),
+                       self._se_expand.bias)
             x = sigmoid(se)[:, :, None, None] * silu(x)
         else:
             x = silu(x)
         x = self._bn2(self._project_conv(x))
-        if (ba.id_skip and ba.stride == 1
-                and ba.input_filters == ba.output_filters):
-            if self.training and drop_connect_rate:
-                x = drop_connect(x, drop_connect_rate, generator)
+        if self.has_skip:
+            if keep is not None:
+                x = apply_keep(x, keep, drop_connect_rate)
             x = x + inputs
         return x
 
@@ -254,9 +271,11 @@ class EfficientNet(nn.Module):
                  num_classes: int = 1000, dropout_rate: Optional[float] = None,
                  drop_connect_rate: Optional[float] = None,
                  compute_dtype: torch.dtype = torch.float32, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.remat = remat
         overrides = {}
         if dropout_rate is not None:
             overrides["dropout_rate"] = dropout_rate
@@ -306,10 +325,17 @@ class EfficientNet(nn.Module):
         x = x.permute(0, 3, 1, 2).contiguous().to(self.compute_dtype)
         x = silu(self._bn0(self._conv_stem(x)))
         n = len(self._blocks)
+        # remat: each block's activations recomputed in the backward
+        # instead of saved (the JAX package's nn.remat per MBConv block)
+        checkpointed = (self.remat and self.training
+                        and torch.is_grad_enabled())
         for idx, block in enumerate(self._blocks):
             # linearly scaled stochastic depth (reference model.py:262-264)
-            x = block(x, self.drop_connect_rate * idx / n, generator)
+            rate = self.drop_connect_rate * idx / n
+            keep = block.drop_connect_mask(x, rate, generator)
+            x = (remat(block, block, x, rate, keep) if checkpointed
+                 else block(x, rate, keep))
         x = silu_mean(self._bn1(self._conv_head(x)))
         if self.training and self.dropout_rate:
             x = dropout(x, self.dropout_rate, generator)
-        return _dense(x, self._fc.weight, self._fc.bias)
+        return dense(x, self._fc.weight, self._fc.bias)

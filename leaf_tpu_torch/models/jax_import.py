@@ -3,10 +3,20 @@
 ``load_jax_variables(module, variables)`` takes the JAX
 ``{"params": …, "batch_stats": …}`` tree, as nested mappings of arrays
 (numpy arrays, or anything ``np.asarray`` reads), and copies it into a
-port ``Classifier``, ``Leaf``, ``EfficientNet`` or ``MBConvBlock``. It is
-the inverse of ``leaf_tpu.models.torch_import`` and refuses partial
-loads: a port tensor with no JAX leaf, a JAX leaf no port tensor takes,
-or a leaf of the wrong shape raises.
+port ``Classifier`` (any backbone), ``Leaf``, ``EfficientNet``,
+``MBConvBlock``, ``ResNet``, ``NetVLAD``, ``CifarResNet`` or
+``DenseNet``. It is the inverse of ``leaf_tpu.models.torch_import``
+(which has no DenseNet or NetVLAD map) and refuses partial loads: a port
+tensor with no JAX leaf, a JAX leaf no port tensor takes, or a leaf of
+the wrong shape raises.
+
+JAX names that differ from the port's: the ResNet wraps each BatchNorm
+in a ``_BN`` module (``layer1_0/bn1/BatchNorm_0/scale``), its blocks are
+``layer{S}_{I}`` with ``downsample_conv`` / ``downsample_bn`` (the port's
+``layerS.I.downsample.0`` / ``.1``) and its NetVLAD head is ``vlad`` with
+``assign_weight`` (K, C) / ``assign_bias`` (the port's ``avgpool.conv``);
+the CIFAR-ResNet's option-B shortcut is ``shortcut_conv`` /
+``shortcut_bn``; DenseNet's ``features.`` prefix is absent.
 
 Layout maps (JAX/Flax NHWC → PyTorch):
   conv ``kernel`` HWIO                → ``weight`` OIHW
@@ -28,8 +38,12 @@ import torch
 from torch import nn
 
 from leaf_tpu_torch.frontend.frontend import Leaf
+from leaf_tpu_torch.models.cifar_resnet import CifarResNet
 from leaf_tpu_torch.models.classifier import Classifier
+from leaf_tpu_torch.models.densenet import DenseNet
 from leaf_tpu_torch.models.efficientnet import EfficientNet, MBConvBlock
+from leaf_tpu_torch.models.netvlad import NetVLAD
+from leaf_tpu_torch.models.resnet import ResNet
 
 __all__ = ["load_jax_variables"]
 
@@ -54,6 +68,13 @@ _FRONTEND = {
     "_preemp.weight": ("params", ("preemp", "kernel"),
                        lambda a: np.transpose(a, (2, 1, 0))),
 }
+
+
+def _linear(prefix: Tuple[str, ...], leaf: str) -> Route:
+    return {
+        "weight": ("params", prefix + ("kernel",), lambda a: a.T),
+        "bias": ("params", prefix + ("bias",), None),
+    }.get(leaf)
 
 
 def _bn(prefix: Tuple[str, ...], leaf: str) -> Route:
@@ -103,18 +124,89 @@ def _backbone_route(k: str) -> Route:
     return tree, (f"block_{m.group(1)}",) + path, tf
 
 
-def _classifier_route(k: str) -> Route:
+def _netvlad_route(k: str) -> Route:
+    return {
+        "centroids": ("params", ("centroids",), None),
+        # (K, C) → the 1×1 conv's (K, C, 1, 1)
+        "conv.weight": ("params", ("assign_weight",),
+                        lambda a: a[:, :, None, None]),
+        "conv.bias": ("params", ("assign_bias",), None),
+    }.get(k)
+
+
+def _resnet_route(k: str, bn_wrap: bool, final: str) -> Route:
+    """The ResNet (``bn_wrap``: each BatchNorm under ``BatchNorm_0``,
+    head ``fc``) and CIFAR-ResNet (head ``linear``) router."""
+    def bn(prefix, leaf):
+        return _bn(prefix + (("BatchNorm_0",) if bn_wrap else ()), leaf)
+
     root, _, rest = k.partition(".")
-    sub = {"features": _frontend_route, "model": _backbone_route}.get(root)
-    spec = sub(rest) if sub is not None else None
-    if spec is None:
+    if root == final:
+        return _linear((final,), rest)
+    if k == "conv1.weight":
+        return "params", ("conv1", "kernel"), _conv
+    if root == "bn1":
+        return bn(("bn1",), rest)
+    if root == "avgpool":
+        sub = _netvlad_route(rest)
+        return None if sub is None else (sub[0], ("vlad",) + sub[1], sub[2])
+    m = re.match(r"^layer(\d+)\.(\d+)\.(\w+?)(?:\.(\d))?\.(\w+)$", k)
+    if not m:
         return None
-    tree, path, tf = spec
-    return tree, (root,) + path, tf
+    stage, idx, mod, seq, leaf = m.groups()
+    blk = (f"layer{stage}_{idx}",)
+    if seq is not None:   # downsample.0 / .1, shortcut.0 / .1
+        if mod not in ("downsample", "shortcut"):
+            return None
+        mod = f"{mod}_{'conv' if seq == '0' else 'bn'}"
+    if re.fullmatch(r"conv\d|\w+_conv", mod) and leaf == "weight":
+        return "params", blk + (mod, "kernel"), _conv
+    if re.fullmatch(r"bn\d|\w+_bn", mod):
+        return bn(blk + (mod,), leaf)
+    return None
 
 
-_ROUTERS = ((Classifier, _classifier_route), (Leaf, _frontend_route),
-            (EfficientNet, _backbone_route), (MBConvBlock, _block_route))
+def _densenet_route(k: str) -> Route:
+    if k.startswith("classifier."):
+        return _linear(("classifier",), k[len("classifier."):])
+    m = re.match(r"^features\.((?:denseblock\d+\.denselayer\d+|"
+                 r"transition\d+)\.)?(\w+)\.(\w+)$", k)
+    if not m:
+        return None
+    parent, mod, leaf = m.groups()
+    prefix = tuple(parent.rstrip(".").split(".")) if parent else ()
+    if re.fullmatch(r"conv\d?", mod) and leaf == "weight":
+        return "params", prefix + (mod, "kernel"), _conv
+    if re.fullmatch(r"norm\d?", mod):
+        return _bn(prefix + (mod,), leaf)
+    return None
+
+
+_ROUTERS = ((Leaf, _frontend_route), (EfficientNet, _backbone_route),
+            (MBConvBlock, _block_route),
+            (ResNet, lambda k: _resnet_route(k, True, "fc")),
+            (CifarResNet, lambda k: _resnet_route(k, False, "linear")),
+            (NetVLAD, _netvlad_route), (DenseNet, _densenet_route))
+
+
+def _router(module: nn.Module) -> Callable[[str], Route]:
+    """Port ``state_dict`` key → (JAX tree, path, transform) for
+    ``module``; a ``Classifier`` routes ``model.*`` by its backbone."""
+    if isinstance(module, Classifier):
+        subs = {"features": _frontend_route, "model": _router(module.model)}
+
+        def route(k: str) -> Route:
+            root, _, rest = k.partition(".")
+            spec = subs[root](rest) if root in subs else None
+            if spec is None:
+                return None
+            tree, path, tf = spec
+            return tree, (root,) + path, tf
+        return route
+    for cls, route in _ROUTERS:
+        if isinstance(module, cls):
+            return route
+    raise TypeError(f"no JAX layout map for {type(module).__name__}")
 
 
 def _leaves(tree: Mapping, pre: Tuple[str, ...] = ()):
@@ -127,9 +219,7 @@ def _leaves(tree: Mapping, pre: Tuple[str, ...] = ()):
 
 def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     """Copy JAX ``variables`` into ``module`` in place; returns ``module``."""
-    route = next((r for cls, r in _ROUTERS if isinstance(module, cls)), None)
-    if route is None:
-        raise TypeError(f"no JAX layout map for {type(module).__name__}")
+    route = _router(module)
     flat = {(tree,) + path: v for tree, sub in variables.items()
             for path, v in _leaves(sub)}
     updates, used = {}, set()

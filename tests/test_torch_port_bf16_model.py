@@ -80,7 +80,7 @@ def test_bf16_dtype_policy():
         for cls, kind in kinds:
             if isinstance(m, cls):
                 m.register_forward_hook(record(kind))
-    dense = eff._dense
+    dense = eff.dense
 
     def dense_spy(x, w, b):
         out = dense(x, w, b)
@@ -93,11 +93,11 @@ def test_bf16_dtype_policy():
     state = TrainState(model, opt, sched)
     x = torch.from_numpy((np.random.RandomState(3).randn(2, 16000) * 0.1)
                          .astype("float32"))
-    eff._dense = dense_spy
+    eff.dense = dense_spy
     try:
         metrics = make_train_step()(state, x, torch.tensor([1, 2]))
     finally:
-        eff._dense = dense
+        eff.dense = dense
     assert seen == {"frontend": {torch.float32}, "conv": {torch.float32},
                     "bn in": {torch.float32}, "bn": {BF16},
                     "dense": {BF16}, "logits": {BF16}}, seen

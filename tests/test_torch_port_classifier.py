@@ -167,12 +167,21 @@ class TestFactory:
             get_classifier({"arch": "efficientnet", "model_depth": "b99",
                             "num_classes": 2}, device="cpu")
 
-    @pytest.mark.parametrize("arch,depth", [("resnet", 18),
-                                            ("cifar_resnet", 20),
-                                            ("densenet", 121)])
-    def test_later_slice_arches_raise(self, arch, depth):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            get_classifier({"arch": arch, "model_depth": depth,
+    @pytest.mark.parametrize("arch,depth,cls", [
+        ("resnet", 18, "ResNet"), ("cifar_resnet", 20, "CifarResNet"),
+        ("densenet", 121, "DenseNet")])
+    def test_later_slice_arches_raise(self, arch, depth, cls):
+        # the rest of the zoo is ported: these arches build, on the CPU,
+        # with the head width asked for; only an unknown depth raises
+        model = get_classifier({"arch": arch, "model_depth": depth,
+                                "num_classes": 2}, device="cpu")
+        head = {"ResNet": "fc", "CifarResNet": "linear",
+                "DenseNet": "classifier"}[cls]
+        assert type(model).__name__ == cls
+        assert getattr(model, head).out_features == 2
+        assert next(model.parameters()).device.type == "cpu"
+        with pytest.raises(ValueError, match=f"{depth + 1} of depth"):
+            get_classifier({"arch": arch, "model_depth": depth + 1,
                             "num_classes": 2}, device="cpu")
 
     def test_seeded_and_train_mode_guarded(self):

@@ -4,8 +4,9 @@ its loggers.
 
 A tiny on-disk experiment after tests/test_preemption.py's
 ``make_tiny_exp`` (24 tone WAVs of 0.4 s, 3 classes, 0.25 s clips, B=4),
-with an efficientnet-b0 backbone behind a small Leaf (8 filters): the
-port has no cifar_resnet yet. The CLIs behave as the JAX
+with an efficientnet-b0 backbone behind a small Leaf (8 filters), and
+once with a ResNet-18 (trained, evaluated and exported). The CLIs behave
+as the JAX
 CLIs do: SIGTERM mid-epoch → ``epoch_000_preempt`` with meta epoch −1 →
 resume at epoch 0; ``--bn_recalibrate`` before validation; evaluate
 writes ``results.txt`` in the JAX format and skips when it is there.
@@ -348,3 +349,44 @@ def test_train_cli_options(mode, flags, tmp_path, capsys, few_threads):
     assert (tmp_path / "exp" / "epoch_000" / "state.pt").exists()
     if "--profile_dir" in flags:
         assert (tmp_path / "prof" / "trace.json").exists()
+
+
+def test_resnet18_experiment_trains_evaluates_and_exports(tmp_path, capsys,
+                                                          few_threads):
+    # the tiny experiment behind a ResNet-18 (cfgs/*/resnet-18-leaf-default
+    # .cfg's model section): train one epoch, evaluate, and export the
+    # checkpoint for serving; the artifact against the live model of it
+    from leaf_tpu_torch import export_serving, train
+    from leaf_tpu_torch.serving import ServingModel
+    from leaf_tpu_torch.training.checkpoint import (best_checkpoint,
+                                                    load_hparams)
+    root = make_tiny_exp(tmp_path)
+    cfg = root / "cfg.cfg"
+    cfg.write_text(cfg.read_text().replace(
+        "    arch: efficientnet\n    model_depth: b0\n",
+        "    arch: resnet\n    model_depth: 18\n    pool: avgpool\n"))
+    expdir = tmp_path / "exp"
+    assert train.main(["--cfg_file", str(cfg), "--expdir", str(expdir),
+                       "--epochs", "1", "--num_workers", "1",
+                       "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "model params: 11," in out, out[-2000:]
+    m = re.search(r"epoch 0: tr_loss (\S+) .* val_acc (\S+) ", out)
+    assert m and np.isfinite(float(m.group(1))), out[-2000:]
+    assert evaluate.main(_eval_args(root, expdir)) == 0
+    header, row = (expdir / "results.txt").read_text().splitlines()
+    assert header == "model,acc,ckpt" and row.startswith("resnet,")
+    serving = tmp_path / "serving"
+    assert export_serving.main(["--exp_dir", str(expdir), "--out_dir",
+                                str(serving), "--batch_sizes", "2",
+                                "--device", "cpu"]) == 0
+    manifest = json.loads((serving / "serving.json").read_text())
+    assert manifest["model"] == {"arch": "resnet", "model_depth": 18}
+    weights = torch.load(os.path.join(best_checkpoint(str(expdir)),
+                                      "state.pt"), weights_only=True)["model"]
+    live = ServingModel(load_hparams(str(expdir)), state_dict=weights,
+                        device="cpu", batch_sizes=(2,))
+    x = (np.random.RandomState(0).randn(3, SR) * 0.1).astype("float32")
+    got, ref = ServingModel.load(str(serving), device="cpu")(x), live(x)
+    assert got.shape == (3, 3)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)

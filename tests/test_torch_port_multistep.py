@@ -45,7 +45,7 @@ from leaf_tpu.training.steps import make_train_step as jax_train_step
 from leaf_tpu_torch import train as train_cli
 from leaf_tpu_torch.data import leaf_device_augment
 from leaf_tpu_torch.models import Classifier, load_jax_variables
-from leaf_tpu_torch.models.jax_import import _classifier_route
+from leaf_tpu_torch.models.jax_import import _router
 from leaf_tpu_torch.training import (TrainState, make_train_multistep,
                                      make_train_step, optimization_helper)
 from leaf_tpu_torch.training.histograms import histogram_tree, tensor_histogram
@@ -80,8 +80,15 @@ def _np_tree(v):
     return jax.tree_util.tree_map(np.asarray, dict(v))
 
 
+@functools.lru_cache(maxsize=None)
+def _classifier_route():
+    """Port name → JAX path for CFG's classifier (the router dispatches on
+    the backbone's type)."""
+    return _router(Classifier(CFG, device="cpu"))
+
+
 def _jax_name(port_name: str) -> str:
-    tree, path, _ = _classifier_route(port_name)
+    tree, path, _ = _classifier_route()(port_name)
     return "/".join((tree,) + path)
 
 

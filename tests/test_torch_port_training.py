@@ -42,7 +42,8 @@ from leaf_tpu_torch.frontend.convolution import GaborConv1d, gabor_constraint
 from leaf_tpu_torch.frontend.pooling import GaussianLowPass
 from leaf_tpu_torch.models import efficientnet as eff
 from leaf_tpu_torch.models import load_jax_variables
-from leaf_tpu_torch.models.common import BatchNorm2d, drop_connect, dropout
+from leaf_tpu_torch.models.common import (BatchNorm2d, apply_keep, dropout,
+                                          keep_mask)
 from leaf_tpu_torch.models.jax_import import _block_route, _frontend_route
 from leaf_tpu_torch.training import (ReduceLROnPlateau, TrainState,
                                      bce_logits_loss, cross_entropy_loss,
@@ -248,11 +249,13 @@ def test_efficientnet_train_mode_rates(monkeypatch):
                          generator=torch.Generator().manual_seed(0))
     seen = []
 
-    def spy(x, rate, generator=None):
+    def spy(shape, rate, x, generator=None):
+        # the block draws its drop-connect mask before its branch, so
+        # that a remat recompute can reuse it
         seen.append(rate)
-        return drop_connect(x, rate, generator)
+        return keep_mask(shape, rate, x, generator)
 
-    monkeypatch.setattr(eff, "drop_connect", spy)
+    monkeypatch.setattr(eff, "keep_mask", spy)
     x = torch.randn(2, 40, 100, 1)
     out = m.train()(x, torch.Generator().manual_seed(1))
     assert out.shape == (2, 5) and bool(torch.isfinite(out).all())
@@ -268,9 +271,17 @@ def test_efficientnet_train_mode_rates(monkeypatch):
 
 
 def test_drop_connect_distribution():
-    x = torch.ones(20000, 2, 3)
+    # an MBConv block's stochastic depth, as the block draws its mask
+    # (``MBConvBlock.drop_connect_mask``): one Bernoulli(0.8) per row,
+    # kept rows scaled by 1/0.8
+    ba = eff.BlockArgs(num_repeat=1, kernel_size=3, stride=1, expand_ratio=1,
+                       input_filters=2, output_filters=2, se_ratio=None)
+    block = eff.MBConvBlock(ba, 0.99, 1e-3, device="cpu").train()
+    x = torch.ones(20000, 2, 3, 1)
     g = torch.Generator().manual_seed(8)
-    out = drop_connect(x, 0.2, g)
+    keep = block.drop_connect_mask(x, 0.2, g)
+    assert block.eval().drop_connect_mask(x, 0.2, g) is None
+    out = apply_keep(x, keep, 0.2)
     per_sample = out.reshape(20000, -1)
     assert bool((per_sample == per_sample[:, :1]).all())  # whole rows
     vals = per_sample[:, 0]
