@@ -101,6 +101,20 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   counts the replays' launches); the speechcommands
                   ResNet-18 cfg through ``train`` (1 epoch, its launch
                   counts) and ``evaluate``
+11b. packed     — [cli]'s task packed by ``python -m
+                  leaf_tpu_torch.pack_dataset`` (64 records per shard):
+                  every record's bytes are its WAV file's, the packed val
+                  items equal the CSV dataset's exactly; the flagship
+                  trained 1 epoch in this process through
+                  ``leaf_tpu_torch.train --use_packed_dataset`` at 4 shards
+                  x 64 = 256 clips per batch, with ``frontend.pretrained``
+                  set to [cli]'s epoch_001 checkpoint and then to a
+                  ``frontend_params.npz`` (scripts/convert_torch_checkpoint
+                  .py's converter): before step 0 the frontend equals the
+                  source's exactly and the backbone the seed's fresh init;
+                  saving forward = backward launches = steps, a primal
+                  launch per val batch, a finite loss; the packed
+                  DataLoader's clips/s alone beside [cli]'s CSV loader
 12. report       — card name and power limit, the ``kernels`` JSON line (six
                   kernels: f32 and bf16), and the last line
                   ``{"ok": true, "device": {...}}``
@@ -2229,6 +2243,210 @@ def phase_cli(tmp: str) -> dict:
     return {"loop": [e[3] for e in epochs], "loader": loader, "walls": walls}
 
 
+# ---------------------------------------------------------------- [packed]
+# [cli]'s tone task packed into shards of 64 records; a batch is 4 shards
+# (the packed cfgs' batch_size counts shards): B = 256 one-second clips.
+PACKED_RECORDS, PACKED_SHARDS = 64, 4
+PACKED_SEED = 8881   # train.py's default --random_seed
+
+
+def _load_script(name: str):
+    """A file of the repository's scripts/ as a module (the converter
+    below imports numpy only)."""
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        f"_script_{name}", os.path.join(here, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _check_packed_items(tmp: str, packed_dir: str) -> None:
+    """Every record's bytes are its WAV file's; the packed val items equal
+    the CSV dataset's items of the same files exactly."""
+    from leaf_tpu_torch.data import PackedDataset, RawWaveformDataset
+    from leaf_tpu_torch.data import msgpack_lite
+    from leaf_tpu_torch.data.dataset import read_manifest
+    n_records = 0
+    for split in ("train", "val"):
+        files = iter(read_manifest(os.path.join(tmp, f"{split}.csv"))["files"])
+        shards = read_manifest(os.path.join(packed_dir,
+                                            f"{split}_packed.csv"))["files"]
+        for shard in shards:
+            with open(shard, "rb") as f:
+                records = msgpack_lite.unpackb(f.read())
+            for rec in records:
+                with open(next(files), "rb") as f:
+                    if rec["audio"] != f.read():
+                        raise AssertionError(f"{shard}: record bytes differ")
+                n_records += 1
+        if next(files, None) is not None:
+            raise AssertionError(f"{split}: records missing from the shards")
+    ac = {"sample_rate": 16000, "min_duration": 1}
+    labels = os.path.join(tmp, "lbl_map.json")
+    raw = RawWaveformDataset(os.path.join(tmp, "val.csv"), labels, ac,
+                             mode="multiclass", is_val=True)
+    packed = PackedDataset(os.path.join(packed_dir, "val_packed.csv"), labels,
+                           ac, mode="multiclass", is_val=True)
+    i = 0
+    for s in range(len(packed)):
+        for wave, label in zip(*packed[s]):
+            rw, rl = raw[i]
+            if (wave.dtype != rw.dtype or not np.array_equal(wave, rw)
+                    or label != rl):
+                raise AssertionError(f"packed val item {i} differs")
+            i += 1
+    if i != len(raw):
+        raise AssertionError(f"{i} packed val items, {len(raw)} in the CSV")
+    log(f"[packed] {n_records} records: bytes equal their WAV files; the "
+        f"{i} packed val items equal RawWaveformDataset's exactly")
+
+
+def _packed_cfg(tmp: str, packed_dir: str, pretrained: str) -> str:
+    """The flagship cfg on the packed manifests, 4 shards per batch, with
+    ``frontend.pretrained``; returns its path."""
+    with open(os.path.join(tmp, "flagship.cfg")) as f:
+        text = f.read()
+    for old, new in (
+            ("batch_size: 256", f"batch_size: {PACKED_SHARDS}"),
+            ('train_manifest: "train.csv"',
+             f'train_manifest: "{packed_dir}/train_packed.csv"'),
+            ('val_manifest: "val.csv"',
+             f'val_manifest: "{packed_dir}/val_packed.csv"'),
+            ("    default_args: True\n",
+             f'    default_args: True\n    pretrained: "{pretrained}"\n')):
+        if text.count(old) != 1:
+            raise AssertionError(f"flagship cfg: {old!r} not found once")
+        text = text.replace(old, new)
+    path = os.path.join(tmp, f"packed_{os.path.basename(pretrained)}.cfg")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _train_packed(cfg_file: str, expdir: str, want_features: dict,
+                  tag: str) -> dict:
+    """``leaf_tpu_torch.train`` with --use_packed_dataset, in this process
+    (TF32 off, the kernels loaded); the model is read right after its
+    frontend is loaded, before the optimizer exists and before step 0."""
+    from leaf_tpu_torch import train
+    from leaf_tpu_torch.models import Classifier
+    from leaf_tpu_torch.training.config import get_config
+    seen = {}
+    real = train.apply_pretrained_frontend
+
+    def spy(cfg, model):
+        out = real(cfg, model)
+        seen.update({k: v.detach().cpu().clone()
+                     for k, v in model.state_dict().items()})
+        seen["device"] = next(model.parameters()).device
+        return out
+
+    steps = CLI_TRAIN // (PACKED_RECORDS * PACKED_SHARDS)
+    val_batches = -(-CLI_VAL // (PACKED_RECORDS * PACKED_SHARDS))
+    train.apply_pretrained_frontend = spy
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        train.main(["--cfg_file", cfg_file, "--expdir", expdir, "--epochs",
+                    "1", "--num_workers", "4", "--use_packed_dataset"])
+    finally:
+        train.apply_pretrained_frontend = real
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    fresh = Classifier(get_config(cfg_file), device=seen.pop("device"),
+                       generator=torch.Generator().manual_seed(PACKED_SEED))
+    fresh = {k: v.cpu() for k, v in fresh.state_dict().items()
+             if k.startswith("model.")}
+    feats = {k: v for k, v in seen.items() if k.startswith("features.")}
+    with open(os.path.join(expdir, "epoch_000", "meta.json")) as f:
+        meta = json.load(f)
+    if (sorted(feats) != sorted(want_features)
+            or not all(torch.equal(feats[k], want_features[k].cpu())
+                       for k in feats)):
+        raise AssertionError(f"{tag}: the loaded frontend differs")
+    if (sorted(fresh) != sorted(k for k in seen if k.startswith("model."))
+            or not all(torch.equal(seen[k], v) for k, v in fresh.items())):
+        raise AssertionError(f"{tag}: the backbone is not the seed's init")
+    if (counts["fwd_save"] != steps or counts["bwd"] != steps
+            or counts["fwd"] < val_batches
+            or any(counts[k] for k in counts if k.endswith("bf16"))
+            or not np.isfinite(meta["tr_loss"])):
+        raise AssertionError(f"{tag}: kernel launches {counts}, meta {meta}")
+    log(f"[packed] {tag}: {len(feats)} frontend tensors equal the source's "
+        f"exactly before step 0, the backbone the seed's init; 1 epoch of "
+        f"{steps} steps at B={PACKED_SHARDS} shards x {PACKED_RECORDS}; "
+        f"tr_loss {meta['tr_loss']}; kernel launches {counts} (saving "
+        f"forward = backward = {steps} steps; primal forward >= "
+        f"{val_batches} val batches); wall {wall:.1f} s")
+    return counts
+
+
+def _time_packed_loader(tmp: str, packed_dir: str, workers: int,
+                        epochs: int = 3) -> list:
+    """clips/s of the packed train DataLoader alone (no model), per epoch."""
+    from leaf_tpu_torch.data import (PackedDataset, leaf_host_crop_transforms,
+                                     setup_dataloaders)
+    ds = PackedDataset(os.path.join(packed_dir, "train_packed.csv"),
+                       os.path.join(tmp, "lbl_map.json"),
+                       {"sample_rate": 16000, "min_duration": 1},
+                       mode="multiclass",
+                       transform=leaf_host_crop_transforms(True, 16000))
+    loader, _ = setup_dataloaders(ds, None, PACKED_SHARDS, target_len=16000,
+                                  num_workers=workers, need_val=False,
+                                  packed=True)
+    rates = []
+    for epoch in range(epochs):
+        loader.set_epoch(epoch)
+        t0 = time.perf_counter()
+        n = sum(x.shape[0] for x, _ in loader)
+        rates.append(n / (time.perf_counter() - t0))
+    return rates
+
+
+def phase_packed(tmp: str, cli: dict) -> None:
+    """[cli]'s tone task as packed shards: pack it with the CLI, check the
+    shards, and train the flagship on them from a pretrained frontend (the
+    [cli] run's epoch_001 checkpoint, then a converted npz)."""
+    packed_dir = os.path.join(tmp, "packed")
+    for split in ("train", "val"):
+        _cli("pack_dataset", [os.path.join(tmp, f"{split}.csv"), packed_dir,
+                              "--records-per-shard", str(PACKED_RECORDS),
+                              "--prefix", split],
+             f"pack_dataset {split}.csv")
+    _check_packed_items(tmp, packed_dir)
+
+    ckpt = os.path.join(tmp, "exp", "epoch_001")
+    weights = torch.load(os.path.join(ckpt, "state.pt"), map_location="cpu",
+                         weights_only=True)["model"]
+    want = {k: v for k, v in weights.items() if k.startswith("features.")}
+    _train_packed(_packed_cfg(tmp, packed_dir, ckpt),
+                  os.path.join(tmp, "exp_packed"), want,
+                  "train --use_packed_dataset, frontend.pretrained = "
+                  "epoch_001")
+
+    # the same from the converter's npz (scripts/convert_torch_checkpoint.py
+    # imports numpy only), the checkpoint's frontend moved off its values
+    convert = _load_script("convert_torch_checkpoint")
+    moved = {k: v * 1.01 for k, v in want.items()}
+    flat = convert.convert_frontend_state_dict(moved)
+    npz_dir = os.path.join(tmp, "npz")
+    os.makedirs(npz_dir)
+    np.savez(os.path.join(npz_dir, "frontend_params.npz"), **flat)
+    _train_packed(_packed_cfg(tmp, packed_dir, npz_dir),
+                  os.path.join(tmp, "exp_packed_npz"), moved,
+                  "train --use_packed_dataset, frontend.pretrained = npz")
+
+    rates = _time_packed_loader(tmp, packed_dir, workers=4)
+    csv_rates = cli["loader"][(False, 4)]
+    log(f"[packed] train DataLoader alone (num_workers 4, B={PACKED_SHARDS} "
+        f"shards x {PACKED_RECORDS}, float32 wire): " + ", ".join(
+            f"epoch {i} {r:.0f} clips/s" for i, r in enumerate(rates))
+        + "; the CSV/WAV loader ([cli], num_workers 4, int16 wire): "
+        + ", ".join(f"epoch {i} {r:.0f}" for i, r in enumerate(csv_rates)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2284,7 +2502,8 @@ def main() -> int:
     timed("zoo-rest", phase_zoo_rest, device)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="leaf_cli_") as tmp:
-        timed("cli", phase_cli, tmp)
+        cli = timed("cli", phase_cli, tmp)
+        timed("packed", phase_packed, tmp, cli)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

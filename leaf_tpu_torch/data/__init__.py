@@ -1,10 +1,12 @@
-"""Data pipeline of the port: audio IO, the CSV-manifest dataset, numpy
-waveform transforms, the threaded loader and device feed (host side),
-and the on-device augments of the train step."""
+"""Data pipeline of the port: audio IO, the CSV-manifest and packed-shard
+datasets, numpy waveform transforms, the threaded loader and device feed
+(host side), and the on-device augments of the train step."""
 
 from leaf_tpu_torch.data.audio import load_audio, load_audio_bytes, write_wav
 from leaf_tpu_torch.data.dataset import (
+    PackedDataset,
     RawWaveformDataset,
+    deflate_packed_batch,
     normalize_waveform,
     parse_labels,
 )
@@ -15,7 +17,9 @@ from leaf_tpu_torch.data.device_augment import (  # noqa: F401
 from leaf_tpu_torch.data.loader import (
     DataLoader,
     ShardedSampler,
+    collate_contrastive,
     collate_fixed,
+    make_packed_collate,
     pinned_placer,
     prefetch_to_device,
     setup_dataloaders,
@@ -32,6 +36,8 @@ __all__ = [
     "load_audio_bytes",
     "write_wav",
     "RawWaveformDataset",
+    "PackedDataset",
+    "deflate_packed_batch",
     "normalize_waveform",
     "parse_labels",
     "leaf_device_augment",
@@ -39,6 +45,8 @@ __all__ = [
     "DataLoader",
     "ShardedSampler",
     "collate_fixed",
+    "collate_contrastive",
+    "make_packed_collate",
     "pinned_placer",
     "prefetch_to_device",
     "setup_dataloaders",

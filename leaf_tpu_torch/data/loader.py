@@ -11,9 +11,10 @@
   order, at most ``prefetch`` completed batches ahead of the consumer;
 - ``prefetch_to_device``: a feeder thread places batches on the device
   ahead of the consumer; ``pinned_placer`` is the place function the
-  CLIs give it (pinned host memory, ``non_blocking`` copies).
-
-The packed-shard collate and the contrastive collate are a later slice.
+  CLIs give it (pinned host memory, ``non_blocking`` copies);
+- ``make_packed_collate`` flattens packed shards into one batch (under
+  ``setup_dataloaders(packed=True)`` the batch size counts shards), and
+  ``collate_contrastive`` stacks two-view items.
 """
 
 from __future__ import annotations
@@ -26,8 +27,11 @@ import numpy as np
 
 import torch
 
-__all__ = ["ShardedSampler", "collate_fixed", "DataLoader",
-           "setup_dataloaders", "prefetch_to_device", "pinned_placer"]
+from leaf_tpu_torch.data.dataset import deflate_packed_batch
+
+__all__ = ["ShardedSampler", "collate_fixed", "collate_contrastive",
+           "DataLoader", "make_packed_collate", "setup_dataloaders",
+           "prefetch_to_device", "pinned_placer"]
 
 
 class ShardedSampler:
@@ -90,6 +94,26 @@ def collate_fixed(batch, target_len: Optional[int] = None,
     else:
         y = np.stack([np.asarray(l, dtype=np.float32) for l in labels])
     return out, y
+
+
+def collate_contrastive(batch, target_len: Optional[int] = None):
+    """Two-view contrastive collate: items are (x_i, x_j, target,
+    supervised_target) — reference utilities/data/utils.py:56-85. Returns
+    (xi (B,T), xj (B,T), targets (B,), supervised_targets (B, C))."""
+    xi = [np.asarray(b[0], dtype=np.float32).reshape(-1) for b in batch]
+    xj = [np.asarray(b[1], dtype=np.float32).reshape(-1) for b in batch]
+    t = target_len or max(max(len(a) for a in xi), max(len(a) for a in xj))
+
+    def stack(ws):
+        out = np.zeros((len(ws), t), dtype=np.float32)
+        for i, w in enumerate(ws):
+            n = min(len(w), t)
+            out[i, :n] = w[:n]
+        return out
+
+    targets = np.asarray([b[2] for b in batch], dtype=np.int32)
+    sup = np.stack([np.asarray(b[3], dtype=np.float32) for b in batch])
+    return stack(xi), stack(xj), targets, sup
 
 
 class DataLoader:
@@ -308,6 +332,19 @@ def pinned_placer(device) -> Callable:
     return place
 
 
+def make_packed_collate(target_len: Optional[int], multiclass: bool):
+    """Collate for PackedDataset items — each item is a whole shard
+    (waves_list, labels_list); deflate shards into one flat batch
+    (reference: packed_collate_fn_raw_*, packed_dataset.py:163-176)."""
+
+    def collate(items):
+        waves, labels = deflate_packed_batch(items)
+        return collate_fixed(list(zip(waves, labels)), target_len,
+                             multiclass)
+
+    return collate
+
+
 def setup_dataloaders(train_set, val_set, batch_size: int,
                       device_world_size: int = 1, local_rank: int = 0,
                       target_len: Optional[int] = None,
@@ -316,13 +353,23 @@ def setup_dataloaders(train_set, val_set, batch_size: int,
                       num_workers: int = 4,
                       multi_device_val: bool = False,
                       need_val: bool = True,
+                      packed: bool = False,
                       seed: int = 0) -> Tuple[DataLoader, Optional[DataLoader]]:
     """Reference training_utils.py:6-36 equivalent: shard train across
-    processes; shard val only if multi_device_val."""
+    processes; shard val only if multi_device_val. With ``packed=True``
+    batch_size counts SHARDS per batch (reference packed semantics),
+    ``drop_last`` drops shards, and shards deflate into the flat batch, so
+    a short shard (or a record that does not decode) makes a smaller
+    batch."""
+    tr_collate = (make_packed_collate(target_len, multiclass)
+                  if packed else None)
+    val_collate = (make_packed_collate(val_target_len or target_len,
+                                       multiclass) if packed else None)
     train_sampler = ShardedSampler(len(train_set), device_world_size,
                                    local_rank, shuffle=True, seed=seed)
     train_loader = DataLoader(train_set, batch_size, sampler=train_sampler,
                               target_len=target_len, multiclass=multiclass,
+                              collate_fn=tr_collate,
                               num_workers=num_workers, drop_last=True)
     val_loader = None
     if need_val and val_set is not None:
@@ -334,5 +381,6 @@ def setup_dataloaders(train_set, val_set, batch_size: int,
         val_loader = DataLoader(val_set, batch_size, sampler=val_sampler,
                                 target_len=val_target_len or target_len,
                                 multiclass=multiclass,
+                                collate_fn=val_collate,
                                 num_workers=num_workers)
     return train_loader, val_loader

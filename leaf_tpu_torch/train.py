@@ -14,13 +14,21 @@ are read once per epoch. Kept as in the JAX ``train.py``:
   train batches before each validation;
 - ``--wire_dtype auto`` ships int16 PCM when the host pipeline is
   crop/pad only; ``--host_aug`` / ``--high_aug`` move augments to the host;
+- ``--use_packed_dataset`` reads msgpack shards (``PackedDataset``; the
+  cfg's ``batch_size`` then counts shards, and the waveforms ship as
+  float32), from ``--gcs_bucket_name``'s bucket where one is named;
+- ``frontend.pretrained`` in the cfg loads a pretrained LEAF frontend
+  (``apply_pretrained_frontend``) into the model before training;
 - the val set padded to the device multiple with zero-weight rows and the
   weighted eval step;
 - SIGTERM: finish the step, save ``epoch_NNN_preempt`` with the schedule
   clock rewound to the epoch start and meta epoch e−1, exit 0;
 - ``--steps_per_call K`` feeds K-stacked batches to
   ``make_train_multistep`` (one CUDA graph of K steps on the card), the
-  epoch's remainder of < K batches to the single step;
+  epoch's remainder of < K batches to the single step. Only K
+  consecutive batches of one shape are stacked, and a group whose shape
+  the captured graph was not made for runs as K single steps: packed
+  shards give a smaller batch where a shard is short;
 - ``--wandb_watch_model`` logs the step's gradient and parameter norms and
   ``--watch_histograms`` also their histograms, at log steps (both force
   K = 1: they are per-step).
@@ -58,8 +66,9 @@ import numpy as np
 import torch
 
 from leaf_tpu_torch import resolve_device
-from leaf_tpu_torch.data import (RawWaveformDataset, pinned_placer,
-                                 prefetch_to_device, setup_dataloaders)
+from leaf_tpu_torch.data import (PackedDataset, RawWaveformDataset,
+                                 pinned_placer, prefetch_to_device,
+                                 setup_dataloaders)
 from leaf_tpu_torch.data import transforms as T
 from leaf_tpu_torch.data.device_augment import (leaf_device_augment,
                                                 peak_normalize)
@@ -71,7 +80,8 @@ from leaf_tpu_torch.training import (TrainState, get_config, make_eval_step,
                                      pad_batch_to_multiple, rewind_steps,
                                      set_group_lr, waveform_from_wire)
 from leaf_tpu_torch.training.bn_recalibrate import recalibrate_batch_stats
-from leaf_tpu_torch.training.checkpoint import (latest_checkpoint,
+from leaf_tpu_torch.training.checkpoint import (apply_pretrained_frontend,
+                                                latest_checkpoint,
                                                 load_checkpoint,
                                                 save_checkpoint, save_hparams)
 from leaf_tpu_torch.training.histograms import histogram_tree
@@ -103,10 +113,13 @@ def parse_args(argv=None):
                    help="use the heavier get_raw_transforms_v2 pipeline "
                         "(background-noise SNR mixing + time masking)")
     p.add_argument("--use_packed_dataset", action="store_true",
-                   help="not ported yet (packed shards)")
+                   help="the manifests list msgpack shards (python -m "
+                        "leaf_tpu_torch.pack_dataset); batch_size counts "
+                        "shards")
     p.add_argument("--cropped_read", action="store_true")
     p.add_argument("--gcs_bucket_name", type=str, default=None,
-                   help="not ported yet (packed shards)")
+                   help="read the packed shards from this GCS bucket "
+                        "(needs google-cloud-storage)")
     p.add_argument("--continue_from_ckpt", type=str, default=None)
     p.add_argument("--random_seed", type=int, default=8881)
     p.add_argument("--log_steps", type=int, default=50)
@@ -159,20 +172,13 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args, cfg) -> None:
-    """Flags whose modules are later slices raise here, naming the
-    ROADMAP item (Queue 1) that ports them."""
+def _refuse_unported(args) -> None:
+    """The data-parallel flags raise here, naming the ROADMAP item
+    (Queue 1) that ports them: item 11 (data parallelism)."""
     unported = [
-        (args.use_packed_dataset, "--use_packed_dataset",
-         "item 3's remainder (packed shards)"),
-        (args.gcs_bucket_name, "--gcs_bucket_name",
-         "item 3's remainder (packed shards)"),
         ((args.n_devices or 1) > 1, "--n_devices > 1",
          "item 11 (data parallelism)"),
         (args.multihost, "--multihost", "item 11 (data parallelism)"),
-        (str(cfg["frontend"].get("pretrained", "") or "").lower()
-         not in ("", "none"), "frontend.pretrained",
-         "item 12 (pretrained weights)"),
     ]
     for on, flag, item in unported:
         if on:
@@ -186,7 +192,7 @@ def train(args) -> float:
     np.random.seed(args.random_seed)
     random.seed(args.random_seed)
     cfg = get_config(args.cfg_file)
-    _refuse_unported(args, cfg)
+    _refuse_unported(args)
     if args.bf16:
         # frontend + backbone compute in bfloat16 (f32 params, PCEN and
         # contraction sums), saved so in hparams.json for evaluate
@@ -230,32 +236,38 @@ def train(args) -> float:
         # default: crop on the host, elementwise augments on the device
         tr_tfs = T.leaf_host_crop_transforms(True, tr_clip)
         val_tfs = T.leaf_host_crop_transforms(False, val_clip)
-    # int16 wire needs every host-side op to be scale-equivariant
-    int16_ok = (not args.host_aug and not args.high_aug
-                and not ac.get("normalize", False))
+    # int16 wire needs every host-side op to be scale-equivariant; packed
+    # shards decode through the float byte-reader and ship float32
+    int16_ok = (not args.use_packed_dataset and not args.host_aug
+                and not args.high_aug and not ac.get("normalize", False))
     wire = args.wire_dtype
     if wire == "auto":
         wire = "int16" if int16_ok else "float32"
     elif wire == "int16" and not int16_ok:
         raise SystemExit(
-            "--wire_dtype int16 is incompatible with --host_aug/--high_aug/"
-            "audio_config.normalize: those host pipelines are not "
-            "scale-equivariant (int16 would silently quantize augmented "
-            "waveforms to {-1,0,1})")
-    data_kw = {"in_memory": bool(cfg["data"].get("in_memory", False)),
-               "wire_dtype": wire, "mode": mode,
-               "delimiter": args.labels_delimiter}
-    train_set = RawWaveformDataset(cfg["data"]["train"], cfg["data"]["labels"],
-                                   ac, transform=tr_tfs,
-                                   cropped_read=args.cropped_read, **data_kw)
-    val_set = RawWaveformDataset(cfg["data"]["val"], cfg["data"]["labels"],
-                                 ac, transform=val_tfs, is_val=True,
-                                 **data_kw)
+            "--wire_dtype int16 is incompatible with --host_aug/"
+            "--high_aug/--use_packed_dataset/audio_config.normalize: "
+            "those host pipelines are not scale-equivariant (int16 would "
+            "silently quantize augmented waveforms to {-1,0,1})")
+    if args.use_packed_dataset:
+        ds_cls = PackedDataset
+        extra = {"gcs_bucket_path": args.gcs_bucket_name}
+    else:
+        ds_cls = RawWaveformDataset
+        extra = {"in_memory": bool(cfg["data"].get("in_memory", False)),
+                 "wire_dtype": wire}
+    train_set = ds_cls(cfg["data"]["train"], cfg["data"]["labels"], ac,
+                       mode=mode, delimiter=args.labels_delimiter,
+                       transform=tr_tfs, cropped_read=args.cropped_read,
+                       **extra)
+    val_set = ds_cls(cfg["data"]["val"], cfg["data"]["labels"], ac,
+                     mode=mode, delimiter=args.labels_delimiter,
+                     transform=val_tfs, is_val=True, **extra)
     train_loader, val_loader = setup_dataloaders(
         train_set, val_set, batch_size, target_len=tr_clip,
         val_target_len=val_clip, multiclass=multiclass,
         num_workers=args.num_workers, multi_device_val=True,
-        seed=args.random_seed)
+        packed=args.use_packed_dataset, seed=args.random_seed)
     steps_per_epoch = len(train_loader)
     logger.print(f"train batches/epoch: {steps_per_epoch} | "
                  f"val batches: {len(val_loader)} | wire: {wire}")
@@ -271,6 +283,11 @@ def train(args) -> float:
     model = Classifier(cfg, device=device,
                        generator=torch.Generator().manual_seed(
                            args.random_seed))
+    # the config's pretrained LEAF frontend (reference
+    # frontend_helper.py:12-14,52-53); its parameters stay f32 under --bf16
+    model, pre_path = apply_pretrained_frontend(cfg, model)
+    if pre_path is not None:
+        logger.print(f"loaded pretrained frontend from {pre_path}")
     # a CUDA graph of K steps holds a capturable optimizer (device lr)
     optimizer, scheduler, plateau, _ = optimization_helper(
         cfg, model.parameters(), num_tr_steps_per_epoch=steps_per_epoch,
@@ -341,13 +358,19 @@ def train(args) -> float:
 
 
 def _group_feed(batches, k: int):
-    """("multi", [k batches]) per k host batches, then ("single", batch)
-    for each of the epoch's remainder; all singles for k = 1."""
+    """("multi", [k batches]) per k consecutive host batches of one shape,
+    ("single", batch) for each batch left over: before a batch of another
+    shape (a short packed shard) and at the epoch's end. All singles for
+    k = 1."""
     if k == 1:
         yield from (("single", b) for b in batches)
         return
     buf = []
     for b in batches:
+        if buf and tuple(np.shape(x) for x in b) != tuple(
+                np.shape(x) for x in buf[0]):
+            yield from (("single", x) for x in buf)
+            buf = []
         buf.append(b)
         if len(buf) == k:
             yield "multi", buf
@@ -393,10 +416,21 @@ def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
         steps_done = 0
         for tag, (xb, yb) in prefetch_to_device(
                 _group_feed(iter(train_loader), k_fuse), place_any):
-            if tag == "multi":
+            if tag == "multi" and train_multistep.can_replay(xb, yb):
                 metrics = train_multistep(state, xb, yb, step_gen)
                 n_new = xb.shape[0]
                 loss_sum = metrics["loss"] * n_new  # the mean of K steps
+                clips = xb.shape[0] * xb.shape[1]
+            elif tag == "multi":
+                # K batches of a shape the captured graph was not made
+                # for: K single steps, never a replay
+                ms = [train_step(state, x, y, step_gen)
+                      for x, y in zip(xb, yb)]
+                metrics = {"loss": ms[-1]["loss"],
+                           "correct": sum(m["correct"] for m in ms),
+                           "count": sum(m["count"] for m in ms)}
+                n_new = len(ms)
+                loss_sum = sum(m["loss"] for m in ms)
                 clips = xb.shape[0] * xb.shape[1]
             else:
                 metrics = train_step(state, xb, yb, step_gen)

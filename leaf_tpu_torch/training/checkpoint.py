@@ -14,8 +14,15 @@ where the JAX package uses orbax:
   ``epoch_N_preempt``; ``best_checkpoint`` never returns a preempt save.
 
 Checkpoints load on the CPU and then move to the model's device, so one
-written on the card reads anywhere. The pretrained-weight loaders of the
-JAX module are a later slice (ROADMAP Queue 1 item 12).
+written on the card reads anywhere.
+
+Pretrained weights, as the JAX module loads them, into a port model in
+place: ``apply_pretrained_frontend`` is the config's ``frontend.pretrained``
+(a converted leaf-pytorch frontend, ``frontend_params.npz`` from
+``scripts/convert_torch_checkpoint.py``, or a checkpoint directory of a
+port run, e.g. one ``scripts/leaf_tpu_to_torch_checkpoint.py`` wrote
+from a ``leaf_tpu`` run); ``load_pretrained_backbone`` copies a
+checkpoint's backbone parameters and keeps the head fresh.
 """
 
 from __future__ import annotations
@@ -25,13 +32,17 @@ import os
 import re
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+from torch import nn
 
 from leaf_tpu_torch.training.state import (TrainState, rewind_steps,
                                            set_group_lr)
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_checkpoint",
-           "best_checkpoint", "save_hparams", "load_hparams"]
+           "best_checkpoint", "save_hparams", "load_hparams",
+           "load_converted_frontend", "load_pretrained_frontend",
+           "apply_pretrained_frontend", "load_pretrained_backbone"]
 
 _CKPT_RE = re.compile(r"^epoch_(\d+)(_preempt)?$")
 _STATE_FILE = "state.pt"
@@ -186,3 +197,120 @@ def save_hparams(exp_dir: str, cfg: dict) -> None:
 def load_hparams(exp_dir: str) -> dict:
     with open(os.path.join(exp_dir, "hparams.json")) as f:
         return json.load(f)
+
+
+def _read_model_state(path: str) -> Dict[str, torch.Tensor]:
+    return torch.load(os.path.join(path, _STATE_FILE), map_location="cpu",
+                      weights_only=True)["model"]
+
+
+def _copy_into(module: nn.Module, values: Dict[str, object],
+               what: str) -> None:
+    """Copy ``values`` ({state_dict key: array}) into ``module``'s tensors
+    in place; an unknown key or a shape that differs raises (nothing is
+    broadcast), and nothing is copied unless every key fits."""
+    state = module.state_dict()
+    values = {k: torch.as_tensor(v) for k, v in values.items()}
+    for key, value in values.items():
+        if key not in state:
+            raise KeyError(f"{what}: '{key}' is not a tensor of "
+                           f"{type(module).__name__}")
+        if value.shape != state[key].shape:
+            raise ValueError(f"{what}: '{key}' has shape "
+                             f"{tuple(value.shape)}, the model's "
+                             f"{tuple(state[key].shape)}")
+    with torch.no_grad():
+        for key, value in values.items():
+            state[key].copy_(value)
+
+
+def load_converted_frontend(npz_dir: str, model: nn.Module) -> nn.Module:
+    """Load a converted leaf-pytorch frontend (``frontend_params.npz`` in
+    ``npz_dir``, scripts/convert_torch_checkpoint.py) into a port
+    ``Classifier``'s ``features`` (or into a ``Leaf``), in place.
+
+    The npz holds the JAX paths (``complex_conv/kernel``,
+    ``pooling/weights`` (C,), ``compression/ema/weights``, …); each maps
+    to its port tensor with ``load_jax_variables``' transforms (the
+    pooling weights to leaf-pytorch's (1, 1, C, 1)). Tensors the npz does
+    not name keep their values, as in the JAX loader."""
+    from leaf_tpu_torch.models.jax_import import _FRONTEND
+    by_path = {"/".join(path): (key, transform)
+               for key, (_, path, transform) in _FRONTEND.items()}
+    with np.load(os.path.join(npz_dir, "frontend_params.npz")) as flat:
+        values = {}
+        for name in flat.files:
+            if name not in by_path:
+                raise KeyError(f"frontend_params.npz: '{name}' is not a "
+                               f"LEAF frontend parameter")
+            key, transform = by_path[name]
+            arr = flat[name]
+            values[key] = arr if transform is None else transform(arr)
+    _copy_into(getattr(model, "features", model), values,
+               "frontend_params.npz")
+    return model
+
+
+def load_pretrained_frontend(path: str, model: nn.Module) -> nn.Module:
+    """Swap in the LEAF frontend of a port checkpoint directory (its
+    ``state.pt``'s ``features.*``), in place; nothing else changes."""
+    weights = _read_model_state(path)
+    features = {k[len("features."):]: v for k, v in weights.items()
+                if k.startswith("features.")}
+    if not features:
+        raise KeyError(f"{path}: the checkpoint holds no features.* tensors")
+    model.features.load_state_dict(features)
+    return model
+
+
+def apply_pretrained_frontend(cfg: dict, model: nn.Module
+                              ) -> Tuple[nn.Module, Optional[str]]:
+    """The config's ``frontend.pretrained`` (reference
+    frontend_helper.py:12-14,52-53), loaded into ``model`` in place.
+
+    Returns (model, the configured path or None). ``''`` or ``none``
+    loads nothing; a ``.npz`` file stands for its directory; a directory
+    holding ``frontend_params.npz`` is a converted frontend, any other a
+    checkpoint directory. A configured path that does not exist raises
+    ``FileNotFoundError``: there is no silent fallback to the mel init.
+    """
+    pretrained = str(cfg.get("frontend", {}).get("pretrained", "") or "")
+    if not pretrained or pretrained.lower() == "none":
+        return model, None
+    path = pretrained
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"frontend.pretrained = {path!r} does not exist")
+    if os.path.isfile(path) and path.endswith(".npz"):
+        path = os.path.dirname(path)
+    if os.path.exists(os.path.join(path, "frontend_params.npz")):
+        return load_converted_frontend(path, model), pretrained
+    return load_pretrained_frontend(path, model), pretrained
+
+
+_HEADS = ("_fc", "fc", "classifier", "linear")
+
+
+def load_pretrained_backbone(path: str, model: nn.Module,
+                             keep_head: bool = True) -> nn.Module:
+    """Copy a port checkpoint's backbone parameters into a ``Classifier``,
+    in place, keeping the fresh output head (``_fc`` / ``fc`` /
+    ``classifier`` / ``linear``) unless ``keep_head`` is False — the
+    reference's fc-swap (model_helper.py:78-94).
+
+    As the JAX loader, it copies parameters only: the BatchNorm running
+    statistics and the frontend stay as they are, and a top-level block
+    the model lacks is passed over. A shape that differs raises."""
+    weights = _read_model_state(path)
+    params = dict(model.model.named_parameters())
+    values = {}
+    for key, value in weights.items():
+        if not key.startswith("model."):
+            continue
+        key = key[len("model."):]
+        if keep_head and key.split(".")[0] in _HEADS:
+            continue
+        if key in params:
+            values[key] = value
+    _copy_into(model.model, values, path)
+    return model

@@ -241,6 +241,15 @@ class TrainMultistep:
     def graph_launch_counts(self) -> Dict[str, int]:
         return {name: n * self.replays for name, n in self.per_replay.items()}
 
+    def can_replay(self, xs: torch.Tensor, ys: torch.Tensor) -> bool:
+        """Whether a call with xs and ys runs: True before the first
+        capture and on the CPU, else whether the graph was captured for
+        their shapes and dtypes (a call with others raises)."""
+        if self._signature is None or not xs.is_cuda:
+            return True
+        return (tuple(xs.shape), xs.dtype, tuple(ys.shape),
+                ys.dtype) == self._signature[:4]
+
     def __call__(self, state: TrainState, xs: torch.Tensor, ys: torch.Tensor,
                  generator: Optional[torch.Generator] = None
                  ) -> Dict[str, torch.Tensor]:

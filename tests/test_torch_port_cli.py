@@ -281,16 +281,17 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
     ("--watch_histograms",), ("--use_packed_dataset",),
     ("--gcs_bucket_name", "b"), ("--n_devices", "2"), ("--multihost",)])
 def test_unported_flags_raise(flag, tmp_path):
-    # the multistep and watch flags are ported: they pass the refusal
-    # (tests/test_torch_port_multistep.py runs them); the rest raise
+    # the multistep, watch and packed-shard flags are ported: they pass
+    # the refusal (tests/test_torch_port_multistep.py and
+    # tests/test_torch_port_packed.py run them); the rest raise
     from leaf_tpu_torch import train
     root = make_tiny_exp(tmp_path)
     argv = ["--cfg_file", str(root / "cfg.cfg"), "--expdir",
             str(tmp_path / "exp"), "--device", "cpu", *flag]
     if flag[0] in ("--steps_per_call", "--wandb_watch_model",
-                   "--watch_histograms"):
-        args = train.parse_args(argv)
-        train._refuse_unported(args, train.get_config(args.cfg_file))
+                   "--watch_histograms", "--use_packed_dataset",
+                   "--gcs_bucket_name"):
+        train._refuse_unported(train.parse_args(argv))
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         train.main(argv)
