@@ -67,6 +67,23 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   launches of the dtype's kernels per replay in the
                   profiler, host ms per step at K = 1 (eager), 4 and 8
                   (graph) with device-busy time, idle share and pool size
+10a. dp         — data parallelism at B=256 per rank, the flagship cfg:
+                  world 1 on NCCL in this process (f32 and bf16): the
+                  data-parallel (global-BatchNorm) step and the
+                  per-replica step bit-equal to the plain step under
+                  deterministic algorithms, a K=4 graph of the
+                  data-parallel step bit-equal to 4 eager ones (its
+                  NCCL kernels counted in a replay), ms per step and
+                  device busy against the plain step eager and at K=4
+                  in turns, the collectives per step; world 2 as two
+                  spawned gloo ranks on cuda:0 (NCCL over two cards too
+                  where there are two): each rank's step launches the
+                  saving forward and the backward once, the replicas
+                  agree, the result equals the plain step on the joined
+                  512 clips (loss 2e-4, BN running stats 1e-5), the
+                  per-replica step on equal rows equals the plain step
+                  on them, and per-replica BatchNorm misses the global
+                  running stats
 10b. zoo        — the rest of the model zoo on the fused kernels. The
                   speechcommands ResNet-18 cfg (read from cfgs/) served
                   through ``ServingModel`` (8, 64) in f32 and bf16 and from
@@ -115,6 +132,11 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   saving forward = backward launches = steps, a primal
                   launch per val batch, a finite loss; the packed
                   DataLoader's clips/s alone beside [cli]'s CSV loader
+11c. dp-cli     — ``torchrun --standalone --nproc_per_node 1`` runs of
+                  ``train --n_devices 1 --multihost`` (1 epoch, its
+                  launch counts) and ``evaluate --n_devices 1`` on
+                  [cli]'s task, and the one-device evaluate of the same
+                  checkpoint (the same accuracy)
 12. report       — card name and power limit, the ``kernels`` JSON line (six
                   kernels: f32 and bf16), and the last line
                   ``{"ok": true, "device": {...}}``
@@ -662,10 +684,10 @@ def _no_launches() -> dict:
 
 
 def _trainer(cfg, state, device, augment: bool, steps_per_epoch: int,
-             epochs: int, capturable: bool = False):
+             epochs: int, capturable: bool = False, pg=None):
     """(TrainState, train step) for ``cfg`` from the weights ``state``;
     the step's loss is the cfg's ``model.type`` (multiclass unless
-    named)."""
+    named); with a process group ``pg`` the data-parallel step."""
     from leaf_tpu_torch.data import leaf_device_augment
     from leaf_tpu_torch.models import Classifier
     from leaf_tpu_torch.training import (TrainState, make_train_step,
@@ -678,7 +700,7 @@ def _trainer(cfg, state, device, augment: bool, steps_per_epoch: int,
     return (TrainState(clf, opt, sched),
             make_train_step(cfg["model"].get("type", "multiclass"),
                             augment_fn=leaf_device_augment if augment
-                            else None))
+                            else None, process_group=pg))
 
 
 def _batch(rng, b: int, device):
@@ -725,7 +747,27 @@ def phase_train(device, state, bf16: bool = False):
     return counts
 
 
-def _compare_runs(tag: str, a, b, p0: dict, losses_a, losses_b) -> None:
+def _stats_error(a, b) -> tuple:
+    """The worst BN running-stat error of module ``a`` against ``b``: the
+    mean's against the layer's largest sd, the variance's against its
+    largest variance."""
+    mean_err = var_err = 0.0
+    mods_b = dict(b.named_modules())
+    for name, ma in a.named_modules():
+        if isinstance(ma, torch.nn.BatchNorm2d):
+            mb = mods_b[name]
+            va, vb = ma.running_var.cpu(), mb.running_var.cpu()
+            mean_err = max(mean_err, float(
+                (ma.running_mean.cpu() - mb.running_mean.cpu()).abs().max()
+                / vb.sqrt().max()))
+            var_err = max(var_err, float((va - vb).abs().max() / vb.max()))
+    return mean_err, var_err
+
+
+def _compare_runs(tag: str, a, b, p0: dict, losses_a, losses_b,
+                  loss_tol: float = LOSS_TOL,
+                  stats_tol: float = STATS_TOL,
+                  front_tol: float = FRONTEND_TOL) -> None:
     """Losses, parameter update and BN running stats of two train runs
     from the same weights ``p0`` (CPU tensors), within the stated
     tolerances (run b is the reference)."""
@@ -743,25 +785,16 @@ def _compare_runs(tag: str, a, b, p0: dict, losses_a, losses_b) -> None:
             front[name] = float((da - db).norm() / db.norm())
     upd = (num / den) ** 0.5
     worst = max(front, key=front.get)
-    mean_err = var_err = 0.0
-    mods_b = dict(b.named_modules())
-    for name, ma in a.named_modules():
-        if isinstance(ma, torch.nn.BatchNorm2d):
-            mb = mods_b[name]
-            va, vb = ma.running_var.cpu(), mb.running_var.cpu()
-            mean_err = max(mean_err, float(
-                (ma.running_mean.cpu() - mb.running_mean.cpu()).abs().max()
-                / vb.sqrt().max()))
-            var_err = max(var_err, float((va - vb).abs().max() / vb.max()))
-    ok = (loss_rel <= LOSS_TOL and upd <= UPDATE_TOL
-          and len(front) == 7 and front[worst] <= FRONTEND_TOL
-          and max(mean_err, var_err) <= STATS_TOL)
+    mean_err, var_err = _stats_error(a, b)
+    ok = (loss_rel <= loss_tol and upd <= UPDATE_TOL
+          and len(front) == 7 and front[worst] <= front_tol
+          and max(mean_err, var_err) <= stats_tol)
     log(f"[train] {tag}: losses {', '.join(f'{v:.6f}' for v in losses_a)} "
         f"vs {', '.join(f'{v:.6f}' for v in losses_b)} (max rel "
-        f"{loss_rel:.3e}, tol {LOSS_TOL:g}); update rel-norm {upd:.3e} (tol "
+        f"{loss_rel:.3e}, tol {loss_tol:g}); update rel-norm {upd:.3e} (tol "
         f"{UPDATE_TOL:g}); worst of {len(front)} frontend leaves {worst} "
-        f"{front[worst]:.3e} (tol {FRONTEND_TOL:g}); BN stats mean/sd "
-        f"{mean_err:.3e}, var/var {var_err:.3e} (tol {STATS_TOL:g}) -> "
+        f"{front[worst]:.3e} (tol {front_tol:g}); BN stats mean/sd "
+        f"{mean_err:.3e}, var/var {var_err:.3e} (tol {stats_tol:g}) -> "
         f"{'ok' if ok else 'FAIL'}")
     log(f"[train] {tag}: frontend leaves "
         + ", ".join(f"{k[len('features.'):]} {v:.3e}"
@@ -1416,16 +1449,19 @@ def _multistep_check(device, state, cfg, sfx: str, tag: str,
     return multi.per_replay
 
 
-def _multistep_timing(device, state, cfg, tag: str, ks=(1, 4, 8)) -> dict:
+def _multistep_timing(device, state, cfg, tag: str, ks=(1, 4, 8),
+                      pg=None) -> dict:
     """Host-clock ms per step, device-busy ms per step, the idle share and
     the fused frontend kernels' share of the device time at K = 1 (eager
-    make_train_step) and the other ``ks`` (graph)."""
+    make_train_step) and the other ``ks`` (graph); with a process group
+    ``pg`` of the data-parallel step, and its collectives per step (NCCL
+    kernels and their device ms, the host ms of the c10d calls)."""
     from leaf_tpu_torch.data import leaf_device_augment
     from leaf_tpu_torch.training import make_train_multistep
     out = {}
     for k in ks:
         st, step = _trainer(cfg, state, device, True, STEPS_PER_EPOCH,
-                            EPOCHS, capturable=k > 1)
+                            EPOCHS, capturable=k > 1, pg=pg)
         gen = torch.Generator(device=device).manual_seed(17)
         xs, ys = _stacked(np.random.RandomState(17), k, device)
         if k == 1:
@@ -1433,7 +1469,8 @@ def _multistep_timing(device, state, cfg, tag: str, ks=(1, 4, 8)) -> dict:
                 step(st, xs[0], ys[0], gen)
             pool = 0
         else:
-            multi = make_train_multistep(k, augment_fn=leaf_device_augment)
+            multi = make_train_multistep(k, augment_fn=leaf_device_augment,
+                                         process_group=pg)
 
             def call(st=st, multi=multi, gen=gen, xs=xs, ys=ys):
                 multi(st, xs, ys, gen)
@@ -1451,6 +1488,14 @@ def _multistep_timing(device, state, cfg, tag: str, ks=(1, 4, 8)) -> dict:
         med = float(np.median(times))
         out[k] = {"ms": med, "busy_ms": busy / k, "pool_bytes": pool,
                   "frontend_ms": front / k}
+        if pg is not None:
+            calls, n, dev_ms, host_ms = _collectives(call)
+            out[k].update(collectives=calls / k, nccl_kernels=n / k,
+                          collective_ms=dev_ms / k,
+                          collective_host_ms=host_ms / k)
+            log(f"{tag} K={k}: collectives per step: {calls / k:g} c10d "
+                f"calls ({host_ms / k:.3f} host ms; a replay makes none), "
+                f"{n / k:g} NCCL kernels ({dev_ms / k:.3f} device ms)")
         log(f"{tag} timing K={k} ({'eager' if k == 1 else 'graph'}): "
             f"median {med:.3f} ms/step ({TRAIN_B / med * 1e3:.1f} clips/s), "
             f"min {min(times):.3f}, max {max(times):.3f} ({TIMED_STEPS} "
@@ -1463,6 +1508,413 @@ def _multistep_timing(device, state, cfg, tag: str, ks=(1, 4, 8)) -> dict:
             del multi
         torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------------- [dp]
+# Data parallelism (leaf_tpu_torch.parallel) on the flagship at B=256 per
+# rank. NCCL refuses two ranks on one device, and this machine has had one
+# card: world 1 runs on NCCL in this process (every collective is issued,
+# a sum of one term: bit-equal to the plain step under deterministic
+# algorithms), world 2 on gloo with both ranks on cuda:0 (gloo moves each
+# tensor through the host: its results are checked, its times are not
+# speed numbers), or on NCCL over two cards where there are two. The
+# world-2 runs are held against the plain step on the joined batch:
+# losses to DP_LOSS_TOL, BN running stats to DP_STATS_TOL of the layer's
+# scale (the global-batch claim: a per-replica BatchNorm misses it), the
+# update and the frontend leaves to the train-parity bounds.
+DP_CFG = {**PARITY_CFG, "opt": {**PARITY_CFG["opt"], "warmup_epochs": 0}}
+DP_STEPS = 2          # steps of each world-1 run (lr > 0 in both)
+# one step at world 2: the running stats after it are the first forward's
+# (from equal weights), which DP_STATS_TOL holds; a second step's would
+# also carry the first update's Adam sign noise
+DP2_STEPS = 1
+DP_K = 4
+DP_LOSS_TOL, DP_STATS_TOL = 2e-4, 1e-5
+DP_TIMEOUT = 300      # seconds for the world-2 ranks
+
+
+class _deterministic:
+    """cuDNN's deterministic algorithms and PyTorch's where an op has one
+    (warn_only), as tests/test_torch_port_cuda.py's fixture sets them."""
+
+    def __enter__(self):
+        self.was = (torch.backends.cudnn.deterministic,
+                    torch.backends.cudnn.benchmark,
+                    torch.are_deterministic_algorithms_enabled(),
+                    torch.is_deterministic_algorithms_warn_only_enabled(),
+                    os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.was[:2]
+        torch.use_deterministic_algorithms(self.was[2],
+                                           warn_only=self.was[3])
+        if self.was[4] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = self.was[4]
+        return False
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+_LAUNCH_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT")
+
+
+def _collectives(fn) -> tuple:
+    """(c10d collective calls, NCCL kernels, their device ms, host ms of
+    the c10d calls) of one ``fn()`` under torch.profiler. A one-rank
+    NCCL all_reduce in place launches no kernel: at world 1 the calls
+    cost host time only, and a graph replay makes none."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    nccl = [e for e in events if _is_device_work(e)
+            and "nccl" in e.key.lower()]
+    host = [e for e in events if e.key.startswith("c10d::")]
+    return (sum(e.count for e in host), sum(e.count for e in nccl),
+            sum(e.self_device_time_total for e in nccl) / 1e3,
+            sum(e.cpu_time_total for e in host) / 1e3)
+
+
+def phase_dp(device, state, multistep: dict) -> dict:
+    """World 1 on NCCL (f32 and bf16: bit-equality, the K=4 graph, timings
+    beside ``multistep``'s plain-step timings) and world 2 (gloo on one
+    card, or NCCL on two)."""
+    from leaf_tpu_torch.parallel import (data_group, init_distributed,
+                                         shutdown_distributed)
+    saved = {k: os.environ.get(k) for k in _LAUNCH_VARS}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    results = {}
+    try:
+        rank, world, dev = init_distributed("cuda")
+        pg = data_group()
+        log(f"[dp] world {world} on {torch.distributed.get_backend(pg)}, "
+            f"rank {rank} on {dev}")
+        for dtype, cfg, sfx in (("f32", TRAIN_CFG, ""),
+                                ("bf16", _bf16(TRAIN_CFG), "_bf16")):
+            tag = f"[dp] {dtype}"
+            par = DP_CFG if dtype == "f32" else _bf16(DP_CFG)
+            results[dtype] = {"counts": _dp_world1_bit_equal(
+                device, state, par, sfx, tag, pg)}
+            _dp_graph_check(device, state, cfg, sfx, tag, pg)
+            torch.cuda.empty_cache()
+            results[dtype]["timing"] = _dp_timing(
+                device, state, cfg, tag, pg, multistep[dtype]["timing"])
+    finally:
+        shutdown_distributed()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    _dp_world2(device, state, "gloo")
+    if n_cards >= 2:
+        _dp_world2(device, state, "nccl")
+    else:
+        log(f"[dp] {n_cards} card on this machine: no NCCL run across "
+            f"cards (world 2 ran on gloo, both ranks on cuda:0)")
+    return results
+
+
+def _dp_world1_bit_equal(device, state, cfg, sfx: str, tag: str,
+                         pg) -> dict:
+    """The plain step, the data-parallel step and the per-replica step at
+    world 1 from the same weights on the same batch, DP_STEPS each, under
+    deterministic algorithms: losses and every parameter and buffer
+    bit-equal; one saving-forward and one backward launch per step."""
+    from leaf_tpu_torch.parallel import make_mesh, make_shard_map_train_step
+    x, y = _batch(np.random.RandomState(20), TRAIN_B, device)
+    runs = {}
+    with _deterministic():
+        for kind in ("plain", "gspmd", "shard_map"):
+            st, step = _trainer(cfg, state, device, False, 2, 10,
+                                pg=pg if kind == "gspmd" else None)
+            if kind == "shard_map":
+                step = make_shard_map_train_step(make_mesh(1))
+            _zero_counts()
+            losses = [step(st, x, y)["loss"] for _ in range(DP_STEPS)]
+            torch.cuda.synchronize()
+            runs[kind] = (torch.stack(losses), st.model.state_dict(),
+                          _counts())
+            del st, step
+    ref_loss, ref_sd, ref_counts = runs["plain"]
+    want = {**_no_launches(), "fwd_save" + sfx: DP_STEPS,
+            "bwd" + sfx: DP_STEPS}
+    for kind in ("gspmd", "shard_map"):
+        loss, sd, counts = runs[kind]
+        unequal = [k for k, v in sd.items() if not torch.equal(v, ref_sd[k])]
+        ok = (torch.equal(loss, ref_loss) and not unequal
+              and counts == ref_counts == want)
+        log(f"{tag}: world 1 {kind} step vs the plain step, {DP_STEPS} "
+            f"steps at B={TRAIN_B} (deterministic algorithms): losses "
+            f"{[float(v) for v in loss]} vs {[float(v) for v in ref_loss]}; "
+            f"{len(sd) - len(unequal)}/{len(sd)} state tensors bit-equal; "
+            f"launches {counts} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: the world-1 {kind} step differs "
+                                 f"from the plain step: {unequal[:5]}")
+    return runs["gspmd"][2]
+
+
+def _dp_graph_check(device, state, cfg, sfx: str, tag: str, pg) -> None:
+    """A K=4 graph of the data-parallel step (augment, dropout and
+    drop-connect on) against 4 eager data-parallel steps from the same
+    state and generator state, under deterministic algorithms: bit-equal;
+    the graph holds the NCCL collectives (the profiler's count in one
+    replay)."""
+    from leaf_tpu_torch.data import leaf_device_augment
+    from leaf_tpu_torch.training import make_train_multistep, make_train_step
+    rng = np.random.RandomState(21)
+    groups = [_stacked(rng, DP_K, device) for _ in range(3)]
+    with _deterministic():
+        st, _ = _trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS,
+                         capturable=True)
+        gen = torch.Generator(device=device).manual_seed(21)
+        multi = make_train_multistep(DP_K, augment_fn=leaf_device_augment,
+                                     process_group=pg)
+        multi(st, *groups[0], gen)      # K eager steps, then the capture
+        want = {"fwd_save" + sfx: DP_K, "bwd" + sfx: DP_K}
+        twin, _, tgen = _twin(cfg, st, gen, device)
+        step = make_train_step(augment_fn=leaf_device_augment,
+                               process_group=pg)
+        got = multi(st, *groups[1], gen)
+        ref = [step(twin, groups[1][0][i], groups[1][1][i], tgen)
+               for i in range(DP_K)]
+        torch.cuda.synchronize()
+    # the mean of the K losses as the graph forms it (in the loss's dtype)
+    ref_loss = torch.stack([m["loss"] for m in ref]).mean()
+    unequal = [k for (k, a), b in zip(st.model.state_dict().items(),
+                                      twin.model.state_dict().values())
+               if not torch.equal(a, b)]
+    ok = (multi.per_replay == want and not unequal
+          and torch.equal(got["loss"], ref_loss)
+          and int(got["correct"]) == sum(int(m["correct"]) for m in ref)
+          and gen.get_state().equal(tgen.get_state()))
+    calls, n, dev_ms, _ = _collectives(lambda: multi(st, *groups[2], gen))
+    log(f"{tag}: K={DP_K} graph of the data-parallel step vs {DP_K} eager "
+        f"data-parallel steps (deterministic algorithms): loss "
+        f"{float(got['loss']):.6f} vs {float(ref_loss):.6f}; "
+        f"{len(unequal)} state tensors differ; launches per replay "
+        f"{multi.per_replay}; one replay: {calls} c10d calls, {n} NCCL "
+        f"kernels ({dev_ms:.3f} device ms) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: the data-parallel graph differs from "
+                             f"its eager steps: {unequal[:5]}")
+
+
+def _dp_timing(device, state, cfg, tag: str, pg, plain: dict) -> dict:
+    """ms per step (host clock) and device-busy ms of the world-1
+    data-parallel step, eager and as a K=4 graph, beside the plain step's
+    (``plain``: [multistep]'s timing of this run, by K)."""
+    out = {}
+    for k in (1, DP_K):
+        out[k] = _multistep_timing(device, state, cfg, f"{tag} dp", (k,),
+                                   pg=pg)[k]
+        torch.cuda.empty_cache()
+        p, d = plain[k], out[k]
+        log(f"{tag} K={k} ({'eager' if k == 1 else 'graph'}): data-parallel "
+            f"{d['ms']:.3f} ms/step, device busy {d['busy_ms']:.3f} ms; the "
+            f"plain step ([multistep], this run) {p['ms']:.3f} / "
+            f"{p['busy_ms']:.3f} ms: {d['ms'] / p['ms'] - 1:+.1%} host "
+            f"clock, {d['busy_ms'] / p['busy_ms'] - 1:+.1%} device busy")
+    return out
+
+
+def _dp_rank(r: int, world: int, store: str, tmp: str, backend: str,
+             device: str) -> None:
+    """One rank of the world-2 run (a spawned process): the data-parallel
+    step on its half of the batch, the per-replica step on its half, and
+    the per-replica step on the first half (the same rows on every
+    rank); writes <tmp>/rank<r>.pt."""
+    import torch.distributed as dist
+
+    from leaf_tpu_torch.parallel import make_mesh, make_shard_map_train_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    kw = {"device_id": device} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=r, world_size=world, **kw)
+    try:
+        blob = torch.load(os.path.join(tmp, "in.pt"), weights_only=True)
+        x, y = blob["x"].to(device), blob["y"].to(device)
+        half = slice(r * TRAIN_B, (r + 1) * TRAIN_B)
+        out = {}
+        for kind, rows in (("dp", half), ("per_replica", half),
+                           ("shard_same", slice(0, TRAIN_B))):
+            st, step = _trainer(DP_CFG, blob["state"], device, False, 2, 10,
+                                pg=dist.group.WORLD if kind == "dp" else None)
+            if kind != "dp":
+                step = make_shard_map_train_step(make_mesh(world))
+            _zero_counts()
+            t0 = time.perf_counter()
+            ms = [step(st, x[rows], y[rows]) for _ in range(DP2_STEPS)]
+            torch.cuda.synchronize()
+            out[kind] = {"losses": [float(m["loss"]) for m in ms],
+                         "count": int(ms[-1]["count"]),
+                         "sd": {k: v.cpu() for k, v in
+                                st.model.state_dict().items()},
+                         "launches": _counts(),
+                         "s": time.perf_counter() - t0}
+            del st, step
+        torch.save(out, os.path.join(tmp, f"rank{r}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_world2(device, state, backend: str) -> None:
+    """Two ranks (spawned) against the plain step on the joined batch and
+    on the first half, in this process."""
+    import multiprocessing
+
+    from leaf_tpu_torch.models import Classifier
+    tag = f"[dp] world 2 ({backend}" + (", both ranks on cuda:0)"
+                                        if backend == "gloo" else ")")
+    rng = np.random.RandomState(22)
+    x, y = _batch(rng, 2 * TRAIN_B, "cpu")
+    with tempfile.TemporaryDirectory(prefix="leaf_dp_") as tmp:
+        torch.save({"state": {k: v.cpu() for k, v in state.items()},
+                    "x": x, "y": y}, os.path.join(tmp, "in.pt"))
+        ctx = multiprocessing.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_dp_rank, args=(
+            r, 2, os.path.join(tmp, "store"), tmp, backend,
+            f"cuda:{r}" if backend == "nccl" else str(device)))
+            for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(DP_TIMEOUT)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"{tag}: rank exit codes "
+                                 f"{[p.exitcode for p in procs]}")
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=True) for r in range(2)]
+    log(f"{tag}: both ranks done in {time.perf_counter() - t0:.1f} s "
+        f"(spawn included; " + ", ".join(
+            f"{k} {outs[0][k]['s']:.1f} s" for k in outs[0])
+        + f" for {DP2_STEPS} step on rank 0: correctness only)")
+    want = {**_no_launches(), "fwd_save": DP2_STEPS, "bwd": DP2_STEPS}
+    for r, o in enumerate(outs):
+        if o["dp"]["launches"] != want or o["dp"]["count"] != 2 * TRAIN_B:
+            raise AssertionError(f"{tag}: rank {r} launches "
+                                 f"{o['dp']['launches']}, count "
+                                 f"{o['dp']['count']}; want {want}")
+    log(f"{tag}: each rank's data-parallel run launched "
+        f"{outs[0]['dp']['launches']} ({DP2_STEPS} step: one saving "
+        f"forward and one backward per step), global count "
+        f"{outs[0]['dp']['count']}")
+    p0 = {k: v.cpu().clone() for k, v in state.items()}
+    refs = {}
+    for name, rows in (("joined", slice(0, 2 * TRAIN_B)),
+                       ("first half", slice(0, TRAIN_B))):
+        st, step = _trainer(DP_CFG, state, device, False, 2, 10)
+        losses = [float(step(st, x[rows].to(device), y[rows].to(device))
+                         ["loss"]) for _ in range(DP2_STEPS)]
+        refs[name] = (st.model.cpu(), losses)
+        del st, step
+        torch.cuda.empty_cache()
+
+    def module(sd):
+        m = Classifier(DP_CFG, device="cpu")
+        m.load_state_dict(sd)
+        return m
+
+    for r in range(2):
+        if any(not torch.equal(v, outs[1]["dp"]["sd"][k])
+               for k, v in outs[r]["dp"]["sd"].items()):
+            raise AssertionError(f"{tag}: the replicas differ")
+    _compare_runs(f"{tag} data-parallel step on the halves vs the plain "
+                  f"step on the joined {2 * TRAIN_B}",
+                  module(outs[0]["dp"]["sd"]), refs["joined"][0], p0,
+                  outs[0]["dp"]["losses"], refs["joined"][1],
+                  loss_tol=DP_LOSS_TOL, stats_tol=DP_STATS_TOL,
+                  front_tol=FRONTEND_GRAD_TOL)
+    _compare_runs(f"{tag} per-replica step on the same {TRAIN_B} rows on "
+                  f"both ranks vs the plain step on them",
+                  module(outs[0]["shard_same"]["sd"]),
+                  refs["first half"][0], p0,
+                  outs[0]["shard_same"]["losses"], refs["first half"][1],
+                  loss_tol=DP_LOSS_TOL, stats_tol=DP_STATS_TOL,
+                  front_tol=FRONTEND_GRAD_TOL)
+    miss = _stats_error(module(outs[0]["per_replica"]["sd"]),
+                        refs["joined"][0])
+    log(f"{tag}: per-replica BatchNorm on the halves vs the joined batch: "
+        f"BN stats mean/sd {miss[0]:.3e}, var/var {miss[1]:.3e} (the "
+        f"global-batch check's tol {DP_STATS_TOL:g}: it must miss)")
+    if max(miss) <= DP_STATS_TOL:
+        raise AssertionError(f"{tag}: per-replica statistics pass the "
+                             "global-batch check: it cannot see the fault")
+
+
+def phase_dp_cli(tmp: str) -> None:
+    """[cli]'s tone task through ``torchrun --nproc_per_node 1``: train
+    --n_devices 1 --multihost --steps_per_call 4 for 2 epochs (epoch 0
+    captures the data-parallel graph with its NCCL calls, epoch 1 replays
+    it), evaluate --n_devices 1, and the one-device evaluate of the same
+    checkpoint (the same accuracy); then ``python -m leaf_tpu_torch.dryrun
+    1`` on the card."""
+    cfg_file = os.path.join(tmp, "flagship.cfg")
+    exp = os.path.join(tmp, "exp_dp")
+    steps = CLI_TRAIN // TRAIN_B
+    out, _ = _cli("train", ["--cfg_file", cfg_file, "--expdir", exp,
+                            "--num_workers", "4", "--epochs", "2",
+                            "--steps_per_call", str(DP_K), "--n_devices",
+                            "1", "--multihost"],
+                  "torchrun train --n_devices 1 --multihost "
+                  f"--steps_per_call {DP_K} --epochs 2", torchrun=1)
+    epochs = _epoch_lines(out)
+    counts = epochs[-1][4] if epochs else {}
+    if ("devices: 1 |" not in out or len(epochs) != 2
+            or not all(np.isfinite(e[1]) for e in epochs)
+            or counts.get("fwd_save") != 2 * steps
+            or counts.get("bwd") != 2 * steps):
+        raise AssertionError(f"data-parallel train CLI: {epochs}")
+    ev = ["--exp_dir", exp, "--meta_dir", tmp, "--test_csv_name",
+          "test.csv"]
+    out_dp, _ = _cli("evaluate", ev + ["--n_devices", "1"],
+                     "torchrun evaluate --n_devices 1", torchrun=1)
+    os.remove(os.path.join(exp, "results.txt"))
+    out_one, _ = _cli("evaluate", ev, "evaluate (one device, no launcher)")
+    accs = [re.search(r"Accuracy: (\S+)", o) for o in (out_dp, out_one)]
+    if not all(accs) or accs[0].group(1) != accs[1].group(1):
+        raise AssertionError(f"evaluate --n_devices 1 and the one-device "
+                             f"evaluate disagree: {accs}")
+    log(f"[cli] data parallel: 2 epochs of {steps} steps under torchrun "
+        f"at K={DP_K} (launches {counts}, the replay's included; losses "
+        f"{[e[1] for e in epochs]}); evaluate --n_devices 1 and the "
+        f"one-device evaluate of its checkpoint: Accuracy "
+        f"{accs[0].group(1)} both")
+    # the dry run's program on one NCCL rank: its default device is the
+    # card (K = 2 as a CUDA graph with the collectives captured)
+    out, _ = _cli("dryrun", ["1"], "dryrun 1 (one NCCL rank on the card)")
+    if "dryrun_multichip(1): ok" not in out:
+        raise AssertionError(f"dryrun 1: {out[-2000:]}")
 
 
 # ------------------------------------------------------------------ [zoo]
@@ -1938,13 +2390,19 @@ def _write_tone_task(root: str) -> None:
                              f'meta_root: "{root}"'))
 
 
-def _cli(module: str, args, tag: str, sigterm_after_steps: int = 0):
-    """Run ``python -m leaf_tpu_torch.<module>``; returns its stdout. With
-    ``sigterm_after_steps`` it is sent SIGTERM after that many step lines.
-    Fails on a non-zero exit; never leaves the process running."""
+def _cli(module: str, args, tag: str, sigterm_after_steps: int = 0,
+         torchrun: int = 0):
+    """Run ``python -m leaf_tpu_torch.<module>`` (under ``torchrun
+    --standalone --nproc_per_node N`` with ``torchrun`` N); returns its
+    stdout. With ``sigterm_after_steps`` it is sent SIGTERM after that
+    many step lines. Fails on a non-zero exit; never leaves the process
+    running."""
     import signal
     here = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-u", "-m", f"leaf_tpu_torch.{module}", *args]
+    if torchrun:
+        cmd[2:3] = ["-m", "torch.distributed.run", "--standalone",
+                    "--nproc_per_node", str(torchrun), "-m"]
     env = {**os.environ,
            "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
     t0 = time.perf_counter()
@@ -2490,7 +2948,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="leaf_export_") as tmp:
         timed("export", phase_export, device, state, leaf, tmp)
     del leaf
-    timed("multistep", phase_multistep, device, state)
+    multistep = timed("multistep", phase_multistep, device, state)
+    timed("dp", phase_dp, device, state, multistep)
     del state
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="leaf_zoo_") as tmp:
@@ -2504,6 +2963,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="leaf_cli_") as tmp:
         cli = timed("cli", phase_cli, tmp)
         timed("packed", phase_packed, tmp, cli)
+        timed("dp-cli", phase_dp_cli, tmp)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

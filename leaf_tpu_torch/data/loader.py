@@ -36,22 +36,29 @@ __all__ = ["ShardedSampler", "collate_fixed", "collate_contrastive",
 
 class ShardedSampler:
     """Epoch-seeded shuffled index shards (torch DistributedSampler
-    semantics: pad indices to world_size multiple, stride by rank)."""
+    semantics: pad indices to world_size multiple, stride by rank), so
+    every rank gets as many indices, and so as many batches.
+
+    ``pad=False`` (validation) strides the unpadded indices instead: each
+    index exactly once over the ranks, the counts differing by one."""
 
     def __init__(self, dataset_len: int, num_replicas: int = 1, rank: int = 0,
                  shuffle: bool = True, seed: int = 0,
-                 drop_last: bool = False):
+                 drop_last: bool = False, pad: bool = True):
         self.dataset_len = dataset_len
         self.num_replicas = num_replicas
         self.rank = rank
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.pad = pad
         self.epoch = 0
         if drop_last:
             self.num_samples = dataset_len // num_replicas
-        else:
+        elif pad:
             self.num_samples = -(-dataset_len // num_replicas)
+        else:
+            self.num_samples = len(range(rank, dataset_len, num_replicas))
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -62,6 +69,8 @@ class ShardedSampler:
             indices = rng.permutation(self.dataset_len)
         else:
             indices = np.arange(self.dataset_len)
+        if not (self.pad or self.drop_last):
+            return iter(indices[self.rank::self.num_replicas].tolist())
         total = self.num_samples * self.num_replicas
         if not self.drop_last and total > len(indices):
             indices = np.concatenate(
@@ -356,7 +365,8 @@ def setup_dataloaders(train_set, val_set, batch_size: int,
                       packed: bool = False,
                       seed: int = 0) -> Tuple[DataLoader, Optional[DataLoader]]:
     """Reference training_utils.py:6-36 equivalent: shard train across
-    processes; shard val only if multi_device_val. With ``packed=True``
+    processes (padded: every rank as many batches); shard val only if
+    multi_device_val (unpadded: each clip scored once). With ``packed=True``
     batch_size counts SHARDS per batch (reference packed semantics),
     ``drop_last`` drops shards, and shards deflate into the flat batch, so
     a short shard (or a record that does not decode) makes a smaller
@@ -375,7 +385,8 @@ def setup_dataloaders(train_set, val_set, batch_size: int,
     if need_val and val_set is not None:
         if multi_device_val:
             val_sampler = ShardedSampler(len(val_set), device_world_size,
-                                         local_rank, shuffle=False)
+                                         local_rank, shuffle=False,
+                                         pad=False)
         else:
             val_sampler = ShardedSampler(len(val_set), shuffle=False)
         val_loader = DataLoader(val_set, batch_size, sampler=val_sampler,

@@ -11,10 +11,16 @@ whose results.txt exists skips. The cfg, and with it the compute dtype
 the JAX ``evaluate.py`` reads its saved cfg; the logits are scored in
 f32, and the run ends by printing the fused kernels' launch counts.
 
+``--n_devices N`` under ``torchrun`` (one process per device) splits the
+windows of each forward over the ranks; every rank gathers the logits,
+and rank 0 reports and writes the metrics, equal to a one-device run's.
+
 Example:
 
     python -m leaf_tpu_torch.evaluate --exp_dir ./exp_scv2_b0 \\
         --meta_dir ~/scv2/meta --test_csv_name test.csv
+    python -m torch.distributed.run --nproc_per_node 8 \\
+        -m leaf_tpu_torch.evaluate --n_devices 8 --exp_dir ... ...
 """
 
 from __future__ import annotations
@@ -28,13 +34,14 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from leaf_tpu_torch import resolve_device
 from leaf_tpu_torch.data import (RawWaveformDataset, leaf_host_crop_transforms,
                                  peak_normalize, pinned_placer,
                                  setup_dataloaders)
 from leaf_tpu_torch.data.transforms import Compose, PeakNormalization
 from leaf_tpu_torch.models import Classifier
 from leaf_tpu_torch.ops.fused_frontend import launch_counts
+from leaf_tpu_torch.parallel import (all_gather_rows, barrier, data_group,
+                                     join_world, shutdown_distributed)
 from leaf_tpu_torch.training import TrainState
 from leaf_tpu_torch.training.bn_recalibrate import recalibrate_batch_stats
 from leaf_tpu_torch.training.checkpoint import (best_checkpoint,
@@ -63,8 +70,9 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda)")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="one device only for now (data parallelism is not "
-                        "ported yet)")
+                   help="devices (= torchrun processes) to split the "
+                        "windows over (default: torchrun's world size, "
+                        "else 1)")
     p.add_argument("--bn_recalibrate", type=int, default=0, metavar="N",
                    help="before scoring, re-estimate the BatchNorm running "
                         "statistics from N train-manifest batches with "
@@ -89,12 +97,15 @@ def pad_to_windows(signal: np.ndarray, sr: int) -> np.ndarray:
 
 @torch.no_grad()
 def score_clips(model: torch.nn.Module, clips: List[np.ndarray], sr: int,
-                device) -> List[np.ndarray]:
+                device, group=None) -> List[np.ndarray]:
     """Mean logits over each clip's 1 s windows, in clip order.
 
     Clips are bucketed by window count, so each forward takes one shape
     and clips batch together (at most MAX_CLIPS_PER_BATCH per forward);
-    the model runs in eval mode."""
+    the model runs in eval mode. With a process ``group`` each forward's
+    windows are split over its ranks (zero rows pad them to a multiple;
+    eval-mode BatchNorm keeps rows independent) and every rank gathers
+    the logits."""
     model.eval()
     buckets = {}
     for i, x in enumerate(clips):
@@ -108,7 +119,7 @@ def score_clips(model: torch.nn.Module, clips: List[np.ndarray], sr: int,
             stacked = np.stack([w for w, _ in chunk])
             b = stacked.shape[0]
             x = torch.from_numpy(stacked.reshape(b * n_windows, sr))
-            logits = model(x.to(device)).float().cpu().numpy()
+            logits = _forward(model, x.to(device), group).cpu().numpy()
             mean_logits = logits.reshape(b, n_windows, -1).mean(axis=1)
             for (_, idx), ml in zip(chunk, mean_logits):
                 out[idx] = ml
@@ -118,9 +129,25 @@ def score_clips(model: torch.nn.Module, clips: List[np.ndarray], sr: int,
     return out
 
 
+def _forward(model, x: torch.Tensor, group) -> torch.Tensor:
+    """f32 logits of the rows of x: on this process alone, or split over
+    ``group``'s ranks and gathered."""
+    if group is None:
+        return model(x).float()
+    world = torch.distributed.get_world_size(group)
+    n = x.shape[0]
+    per = -(-n // world)
+    x = torch.cat([x, x.new_zeros((per * world - n,) + x.shape[1:])])
+    r = torch.distributed.get_rank(group)
+    mine = model(x[r * per:(r + 1) * per]).float()
+    return all_gather_rows(mine, group)[:n]
+
+
 def _recalibrate(args, state: TrainState, ac: dict, sr: int, device) -> None:
     """BN statistics from random train-manifest crops, peak-normalized
-    like training, with the parameters frozen."""
+    like training, with the parameters frozen (under data parallelism
+    every rank walks the same batches and the statistics are reduced, so
+    the replicas stay equal)."""
     tr_clip = int(float(ac.get("random_clip_size", 1.0)) * sr)
     recal_set = RawWaveformDataset(
         os.path.join(args.meta_dir, args.train_csv_name),
@@ -148,7 +175,8 @@ def _recalibrate(args, state: TrainState, ac: dict, sr: int, device) -> None:
     recalibrate_batch_stats(
         state, recal_batches(args.bn_recalibrate),
         torch.Generator(device=device).manual_seed(0),
-        preprocess=lambda _, x: peak_normalize(x))
+        preprocess=lambda _, x: peak_normalize(x),
+        process_group=data_group())
 
 
 def results_text(cfg: dict, metrics: str, preds, gts,
@@ -169,11 +197,15 @@ def results_text(cfg: dict, metrics: str, preds, gts,
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if (args.n_devices or 1) > 1:
-        raise NotImplementedError(
-            "--n_devices > 1 is not ported to leaf_tpu_torch yet: ROADMAP "
-            "Queue 1 item 11 (data parallelism)")
-    device = resolve_device(args.device)
+    rank, world, device = join_world("leaf_tpu_torch.evaluate", args.device,
+                                     args.n_devices)
+    try:
+        return _evaluate(args, rank, world, device)
+    finally:
+        shutdown_distributed()
+
+
+def _evaluate(args, rank: int, world: int, device) -> int:
     cfg = load_hparams(args.exp_dir)
     ckpt = args.ckpt or best_checkpoint(args.exp_dir)
     if not ckpt:
@@ -203,7 +235,9 @@ def main(argv=None) -> int:
         _recalibrate(args, state, ac, sr, device)
 
     clips, labels = zip(*(test_set[i] for i in range(len(test_set))))
-    mean_logits = score_clips(model, list(clips), sr, device)
+    if world > 1:
+        print(f"rank {rank}: splitting the windows over {world} devices")
+    mean_logits = score_clips(model, list(clips), sr, device, data_group())
     if args.metrics == "multiclass":
         preds = [int(np.argmax(ml)) for ml in mean_logits]
         gts = [int(y) for y in labels]
@@ -212,10 +246,12 @@ def main(argv=None) -> int:
                  for ml in mean_logits]
         gts = [np.asarray(y, dtype=np.float32)[None] for y in labels]
     summary, body = results_text(cfg, args.metrics, preds, gts, ckpt_name)
-    print(summary)
+    print(summary if rank == 0 else f"rank {rank}: {summary}")
     print(f"kernels {json.dumps(launch_counts())}")
-    with open(res_path, "w") as fd:
-        fd.write(body)
+    if rank == 0:
+        with open(res_path, "w") as fd:
+            fd.write(body)
+    barrier()
     return 0
 
 

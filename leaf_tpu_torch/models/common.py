@@ -10,6 +10,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from leaf_tpu_torch.parallel.sync_batch_norm import global_batch_norm
+
 __all__ = ["BatchNorm2d", "Conv2d", "Conv2dSame", "apply_keep",
            "bn_scale_normal_", "dense", "dropout", "global_avg_pool",
            "keep_mask", "kaiming_normal_fan_out_", "lecun_normal_",
@@ -40,6 +42,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``update_stats`` False normalises with the batch statistics without
     touching the running ones: ``remat``'s recompute, which Flax's
     ``nn.remat`` does not let update them a second time.
+
+    ``process_group`` (set by ``parallel.sync_batch_norm`` for a
+    data-parallel step; None otherwise) makes the train-mode statistics
+    those of the global batch over the group's ranks
+    (``parallel.sync_batch_norm.global_batch_norm``).
     """
 
     def __init__(self, *args, out_dtype: Optional[torch.dtype] = None,
@@ -47,12 +54,22 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(*args, **kwargs)
         self.out_dtype = out_dtype
         self.update_stats = True
+        self.process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out_dtype = self.out_dtype or x.dtype
         x = x.float()
         if not self.training:
             return super().forward(x).to(out_dtype)
+        if self.process_group is not None:
+            out, mean, var = global_batch_norm(x, self.weight, self.bias,
+                                               self.eps, self.process_group)
+            if self.update_stats:
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean, self.momentum)
+                    self.running_var.lerp_(var, self.momentum)
+                    self.num_batches_tracked.add_(1)
+            return out.to(out_dtype)
         if self.update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)

@@ -19,8 +19,8 @@ are read once per epoch. Kept as in the JAX ``train.py``:
   float32), from ``--gcs_bucket_name``'s bucket where one is named;
 - ``frontend.pretrained`` in the cfg loads a pretrained LEAF frontend
   (``apply_pretrained_frontend``) into the model before training;
-- the val set padded to the device multiple with zero-weight rows and the
-  weighted eval step;
+- the val set split over the ranks (each clip scored once) and its
+  metrics reduced over them;
 - SIGTERM: finish the step, save ``epoch_NNN_preempt`` with the schedule
   clock rewound to the epoch start and meta epoch e−1, exit 0;
 - ``--steps_per_call K`` feeds K-stacked batches to
@@ -31,7 +31,19 @@ are read once per epoch. Kept as in the JAX ``train.py``:
   shards give a smaller batch where a shard is short;
 - ``--wandb_watch_model`` logs the step's gradient and parameter norms and
   ``--watch_histograms`` also their histograms, at log steps (both force
-  K = 1: they are per-step).
+  K = 1: they are per-step);
+- data parallelism: one process per device, started by ``torchrun``
+  (``--n_devices N`` must equal its world size; ``--multihost`` joins the
+  process group too, also from the JAX CLI's LEAF_COORDINATOR /
+  LEAF_NUM_PROCESSES / LEAF_PROCESS_ID). NCCL on the card, gloo with
+  ``--device cpu``. Each rank reads its shard of the train manifest
+  (``--batch_mode``: the cfg batch per device or in all); the step takes
+  BatchNorm statistics over the global batch and reduces the gradients
+  and metrics over the ranks (``make_train_step(process_group=...)``);
+  rank 0 writes the checkpoints and logs; SIGTERM stops every rank at the
+  same step (agreed at log steps); validation splits the val set over
+  the ranks and reduces its sums (multilabel: gathers the outputs), so
+  every rank feeds the same metric to the plateau controller.
 
 The epoch line ends with the fused frontend kernels' launch counts since
 the process started (``kernels {"fwd": .., "fwd_save": .., "bwd": ..,
@@ -51,6 +63,10 @@ Example (flagship SpeechCommands recipe):
     python -m leaf_tpu_torch.train \\
         --cfg_file cfgs/speechcommands/efficientnet-b0-leaf-default.cfg \\
         --expdir ./exp_scv2_b0 --epochs 100 --random_seed 8881
+
+    # 8 cards, 256 clips per card and step:
+    python -m torch.distributed.run --nproc_per_node 8 \\
+        -m leaf_tpu_torch.train --n_devices 8 --cfg_file ... --expdir ...
 """
 
 from __future__ import annotations
@@ -65,7 +81,6 @@ import time
 import numpy as np
 import torch
 
-from leaf_tpu_torch import resolve_device
 from leaf_tpu_torch.data import (PackedDataset, RawWaveformDataset,
                                  pinned_placer, prefetch_to_device,
                                  setup_dataloaders)
@@ -74,10 +89,14 @@ from leaf_tpu_torch.data.device_augment import (leaf_device_augment,
                                                 peak_normalize)
 from leaf_tpu_torch.models import Classifier
 from leaf_tpu_torch.ops.fused_frontend import launch_counts
+from leaf_tpu_torch.parallel import (all_gather_rows, all_reduce_sum_,
+                                     any_rank, data_group, host_group,
+                                     join_world, loader_batch_size,
+                                     make_mesh, shard_params,
+                                     shutdown_distributed)
 from leaf_tpu_torch.training import (TrainState, get_config, make_eval_step,
                                      make_train_multistep, make_train_step,
-                                     optimization_helper,
-                                     pad_batch_to_multiple, rewind_steps,
+                                     optimization_helper, rewind_steps,
                                      set_group_lr, waveform_from_wire)
 from leaf_tpu_torch.training.bn_recalibrate import recalibrate_batch_stats
 from leaf_tpu_torch.training.checkpoint import (apply_pretrained_frontend,
@@ -92,6 +111,7 @@ from leaf_tpu_torch.training.metrics import calculate_mAP
 _DROPPED = ("train.py's --platform and --compilation_cache_dir are dropped: "
             "--device picks the device, and nothing is compiled ahead of the "
             "run.")
+_RANK_SEED = 7919   # rank r's step generator: seed + 1 + r·_RANK_SEED
 
 
 def parse_args(argv=None):
@@ -128,8 +148,8 @@ def parse_args(argv=None):
                         "epoch always saves; epochs that improve the val "
                         "metric always save.")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="one device only for now (data parallelism is "
-                        "not ported yet)")
+                   help="devices (= processes) of a data-parallel run; "
+                        "must equal torchrun's world size (default: it)")
     p.add_argument("--batch_mode", choices=("per_device", "global"),
                    default="per_device",
                    help="batch semantics of the cfg batch_size; the same "
@@ -168,31 +188,25 @@ def parse_args(argv=None):
                    help="write a torch.profiler Chrome trace of 5 steps "
                         "(trace.json) here before training")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported yet")
+                   help="join the process group the launcher describes "
+                        "(torchrun, or LEAF_COORDINATOR/LEAF_NUM_PROCESSES/"
+                        "LEAF_PROCESS_ID)")
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    """The data-parallel flags raise here, naming the ROADMAP item
-    (Queue 1) that ports them: item 11 (data parallelism)."""
-    unported = [
-        ((args.n_devices or 1) > 1, "--n_devices > 1",
-         "item 11 (data parallelism)"),
-        (args.multihost, "--multihost", "item 11 (data parallelism)"),
-    ]
-    for on, flag, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported to leaf_tpu_torch yet: ROADMAP "
-                f"Queue 1 {item}")
-
-
 def train(args) -> float:
-    device = resolve_device(args.device)
+    rank, world, device = join_world("leaf_tpu_torch.train", args.device,
+                                     args.n_devices, args.multihost)
+    try:
+        return _train(args, rank, world, device)
+    finally:
+        shutdown_distributed()
+
+
+def _train(args, rank: int, world: int, device: torch.device) -> float:
     np.random.seed(args.random_seed)
     random.seed(args.random_seed)
     cfg = get_config(args.cfg_file)
-    _refuse_unported(args)
     if args.bf16:
         # frontend + backbone compute in bfloat16 (f32 params, PCEN and
         # contraction sums), saved so in hparams.json for evaluate
@@ -207,8 +221,9 @@ def train(args) -> float:
     batch_size = int(cfg["opt"]["batch_size"])
     use_mixup = bool(ac.get("mixup", False))
 
+    group = data_group()
     logger = TrainLogger(
-        args.expdir,
+        args.expdir, is_master=rank == 0,
         wandb_config=None if args.no_wandb else {
             "project": args.wandb_project,
             "group": args.wandb_group,
@@ -218,8 +233,10 @@ def train(args) -> float:
         })
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    logger.print(f"device: {device} ({name}) | mode: {mode} | "
-                 f"batch/step: {batch_size}")
+    loader_bs = loader_batch_size(batch_size, world, world, args.batch_mode)
+    logger.print(f"device: {device} ({name}) | devices: {world} | mode: "
+                 f"{mode} | batch/step: {loader_bs * world} "
+                 f"({args.batch_mode})")
 
     # ------------------------------------------------------------- data
     if args.high_aug:
@@ -264,7 +281,8 @@ def train(args) -> float:
                      mode=mode, delimiter=args.labels_delimiter,
                      transform=val_tfs, is_val=True, **extra)
     train_loader, val_loader = setup_dataloaders(
-        train_set, val_set, batch_size, target_len=tr_clip,
+        train_set, val_set, loader_bs, device_world_size=world,
+        local_rank=rank, target_len=tr_clip,
         val_target_len=val_clip, multiclass=multiclass,
         num_workers=args.num_workers, multi_device_val=True,
         packed=args.use_packed_dataset, seed=args.random_seed)
@@ -288,10 +306,13 @@ def train(args) -> float:
     model, pre_path = apply_pretrained_frontend(cfg, model)
     if pre_path is not None:
         logger.print(f"loaded pretrained frontend from {pre_path}")
+    mesh = make_mesh(world) if group is not None else None
+    if mesh is not None:
+        shard_params(mesh, model)   # the replicas start equal
     # a CUDA graph of K steps holds a capturable optimizer (device lr)
     optimizer, scheduler, plateau, _ = optimization_helper(
-        cfg, model.parameters(), num_tr_steps_per_epoch=steps_per_epoch,
-        num_epochs=args.epochs,
+        cfg, model.parameters(), num_devices=world,
+        num_tr_steps_per_epoch=steps_per_epoch, num_epochs=args.epochs,
         capturable=k_fuse > 1 and device.type == "cuda")
     state = TrainState(model, optimizer, scheduler)
     n_params = sum(p.numel() for p in model.parameters())
@@ -304,6 +325,9 @@ def train(args) -> float:
             logger.print("no checkpoint to resume; starting fresh")
     if args.continue_from_ckpt:
         state, meta = load_checkpoint(args.continue_from_ckpt, state)
+        if mesh is not None and shard_params(mesh, model) != 0.0:
+            raise RuntimeError(f"the ranks restored different weights from "
+                               f"{args.continue_from_ckpt}")
         start_epoch = int(meta.get("epoch", -1)) + 1
         if plateau is not None and "scheduler" in meta:
             plateau.load_state_dict(meta["scheduler"])
@@ -316,12 +340,15 @@ def train(args) -> float:
     train_step = make_train_step(mode, mixup_alpha=mixup_alpha,
                                  augment_fn=tr_augment,
                                  watch_norms=args.watch_model,
-                                 watch_histograms=args.watch_histograms)
+                                 watch_histograms=args.watch_histograms,
+                                 process_group=group)
     train_multistep = (make_train_multistep(k_fuse, mode, mixup_alpha,
-                                            tr_augment)
+                                            tr_augment, process_group=group)
                        if k_fuse > 1 else None)
     eval_step = make_eval_step(mode)
-    step_gen = torch.Generator(device=device).manual_seed(args.random_seed + 1)
+    # each rank draws its own augment, mixup and dropout numbers
+    step_gen = torch.Generator(device=device).manual_seed(
+        args.random_seed + 1 + _RANK_SEED * rank)
     place = pinned_placer(device)
 
     save_hparams(args.expdir, cfg)
@@ -329,7 +356,7 @@ def train(args) -> float:
         # trace a handful of steps after one warm-up step
         xb, yb = place(next(iter(train_loader)))
         train_step(state, xb, yb, step_gen)
-        with profile_trace(args.profile_dir):
+        with profile_trace(args.profile_dir if rank == 0 else None):
             for _ in range(5):
                 train_step(state, xb, yb, step_gen)
             if device.type == "cuda":
@@ -357,18 +384,19 @@ def train(args) -> float:
         logger.close()
 
 
-def _group_feed(batches, k: int):
+def _group_feed(batches, k: int, agree=bool):
     """("multi", [k batches]) per k consecutive host batches of one shape,
     ("single", batch) for each batch left over: before a batch of another
     shape (a short packed shard) and at the epoch's end. All singles for
-    k = 1."""
+    k = 1. ``agree(flag)`` is the ranks' verdict on a shape change
+    (``any_rank``), so every rank groups its batches alike."""
     if k == 1:
         yield from (("single", b) for b in batches)
         return
     buf = []
     for b in batches:
-        if buf and tuple(np.shape(x) for x in b) != tuple(
-                np.shape(x) for x in buf[0]):
+        if buf and agree(tuple(np.shape(x) for x in b) != tuple(
+                np.shape(x) for x in buf[0])):
             yield from (("single", x) for x in buf)
             buf = []
         buf.append(b)
@@ -389,6 +417,42 @@ def _kernel_counts(train_multistep) -> dict:
     return counts
 
 
+def validate(state, val_loader, eval_step, place, multiclass: bool,
+             use_mixup: bool = False, peak_norm: bool = False,
+             process_group=None):
+    """(val_loss, val_metric) of the model on the val loader's batches.
+
+    Each rank scores its share of the val set (ShardedSampler, unpadded:
+    no pad rows); the sums, and the multilabel outputs, are reduced over
+    the ranks once, so every rank reads the same metric. val_loss is the
+    JAX CLI's: the mean of the batches' mean losses. ``peak_norm``: the
+    split pipeline's val PeakNormalization, on the device."""
+    device = next(state.model.parameters()).device
+    pg = process_group
+    sums = torch.zeros(4, dtype=torch.float64, device=device)
+    one = torch.ones((), dtype=torch.float64, device=device)
+    outputs, gts = [], []
+    for xb, yb in prefetch_to_device(iter(val_loader), place):
+        if peak_norm:
+            xb = peak_normalize(waveform_from_wire(xb))
+        m = eval_step(state, xb, yb)
+        sums += torch.stack([m["loss"].double(), m["correct"].double(),
+                             m["count"].double(), one])
+        if not multiclass:
+            outputs.append(m["outputs"].cpu().numpy())
+            gts.append(yb.cpu().numpy())
+    v_loss, v_correct, v_count, v_batches = all_reduce_sum_(sums,
+                                                            pg).tolist()
+    val_loss = v_loss / max(1.0, v_batches)
+    if multiclass:
+        return val_loss, v_correct / max(1.0, v_count)
+    if pg is not None:
+        outputs, gts = ([all_gather_rows(torch.from_numpy(
+            np.concatenate(a)), host_group(pg)).numpy()]
+            for a in (outputs, gts))
+    return val_loss, calculate_mAP(outputs, gts, mixup=use_mixup)
+
+
 def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
                 train_step, train_multistep, eval_step, step_gen, place,
                 tr_augment, logger, preempted) -> float:
@@ -400,6 +464,9 @@ def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
     steps_per_epoch = len(train_loader)
     best_val, metric_name = -1.0, "val_acc" if multiclass else "val_mAP"
     k_fuse = 1 if train_multistep is None else train_multistep.k
+    pg = data_group()
+    world = 1 if pg is None else torch.distributed.get_world_size(pg)
+    rank = 0 if pg is None else torch.distributed.get_rank(pg)
 
     def place_any(item):
         tag, payload = item
@@ -408,15 +475,33 @@ def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
         return tag, place((np.stack([np.asarray(b[0]) for b in payload]),
                            np.stack([np.asarray(b[1]) for b in payload])))
 
+    def stack_placed(item):
+        tag, payload = item
+        if tag == "single":
+            return item
+        return tag, (torch.stack([b[0] for b in payload]),
+                     torch.stack([b[1] for b in payload]))
+
+    def feed():
+        if pg is None:
+            # the feeder thread groups, stacks on the host and places
+            return prefetch_to_device(_group_feed(iter(train_loader), k_fuse),
+                                      place_any)
+        # grouped in this thread, after the feeder placed each batch: the
+        # ranks' host collectives (any_rank) stay in one order
+        return map(stack_placed, _group_feed(
+            prefetch_to_device(iter(train_loader), place), k_fuse, any_rank))
+
     for epoch in range(start_epoch, args.epochs):
         train_loader.set_epoch(epoch)
         tracker = RateTracker()
         ep_loss = ep_correct = ep_count = None
         t0 = time.time()
         steps_done = 0
-        for tag, (xb, yb) in prefetch_to_device(
-                _group_feed(iter(train_loader), k_fuse), place_any):
-            if tag == "multi" and train_multistep.can_replay(xb, yb):
+        for tag, (xb, yb) in feed():
+            # a replay (and the capture) happens on every rank or on none
+            if tag == "multi" and not any_rank(
+                    not train_multistep.can_replay(xb, yb)):
                 metrics = train_multistep(state, xb, yb, step_gen)
                 n_new = xb.shape[0]
                 loss_sum = metrics["loss"] * n_new  # the mean of K steps
@@ -435,6 +520,7 @@ def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
             else:
                 metrics = train_step(state, xb, yb, step_gen)
                 n_new, loss_sum, clips = 1, metrics["loss"], xb.shape[0]
+            clips *= world
             prev_steps = steps_done
             steps_done += n_new
             bi = steps_done - 1  # the last step this call completed
@@ -450,8 +536,9 @@ def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
             tracker.add(clips)
             # under K steps per call: did this call cross a multiple of
             # log_steps?
-            if prev_steps == 0 or bi // args.log_steps > (
-                    (prev_steps - 1) // args.log_steps):
+            at_log = prev_steps == 0 or bi // args.log_steps > (
+                (prev_steps - 1) // args.log_steps)
+            if at_log:
                 logger.print(
                     f"epoch {epoch} step {bi}/{steps_per_epoch} "
                     f"rate {tracker.rate():.1f} ex/s "
@@ -468,7 +555,11 @@ def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
                     hists.update(histogram_tree(metrics["_grads"],
                                                 prefix="grads/"))
                     logger.log_histograms(hists, step=at)
-            if preempted:
+            # SIGTERM may reach the ranks at different steps: they agree
+            # at log steps, so all stop at the same step (same rewind)
+            stop = bool(preempted) if pg is None else (
+                at_log and any_rank(bool(preempted)))
+            if stop:
                 # Rewind the schedule clock to the epoch boundary: the
                 # resumed run redoes this epoch from its start, so the
                 # mid-epoch steps must not advance warmupcosine/StepLR.
@@ -513,38 +604,15 @@ def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
             recalibrate_batch_stats(
                 state, recal_batches(args.bn_recalibrate),
                 torch.Generator(device=device).manual_seed(
-                    args.random_seed + 10_000 + epoch),
-                preprocess=recal_pre)
+                    args.random_seed + 10_000 + epoch + _RANK_SEED * rank),
+                preprocess=recal_pre, process_group=pg)
             logger.print(f"recalibrated BN stats on {args.bn_recalibrate} "
                          f"train batches")
 
         # ----------------------------------------------------- validation
-        # pad each batch to the device multiple with zero-weight rows
-        # (one device: a multiple of 1) and let the weighted eval step
-        # keep them out of every metric
-        def place_val(batch):
-            return place(pad_batch_to_multiple(np.asarray(batch[0]),
-                                               np.asarray(batch[1]), 1))
-
-        v_loss = v_correct = v_count = 0.0
-        outputs, gts = [], []
-        for xb, yb, wb in prefetch_to_device(iter(val_loader), place_val):
-            if tr_augment is not None:
-                # the split pipeline's val PeakNormalization, on the device
-                xb = peak_normalize(waveform_from_wire(xb))
-            m = eval_step(state, xb, yb, wb)
-            v_loss = v_loss + m["loss"]
-            v_correct = v_correct + m["correct"]
-            v_count = v_count + m["count"]
-            if not multiclass:
-                keep = (wb > 0).cpu().numpy()
-                outputs.append(m["outputs"].cpu().numpy()[keep])
-                gts.append(yb.cpu().numpy()[keep])
-        val_loss = float(v_loss) / max(1, len(val_loader))
-        if multiclass:
-            val_metric = float(v_correct) / max(1, int(v_count))
-        else:
-            val_metric = calculate_mAP(outputs, gts, mixup=use_mixup)
+        val_loss, val_metric = validate(
+            state, val_loader, eval_step, place, multiclass, use_mixup,
+            peak_norm=tr_augment is not None, process_group=pg)
 
         dt = time.time() - t0
         logger.print(
@@ -552,6 +620,11 @@ def _run_epochs(args, start_epoch, state, plateau, train_loader, val_loader,
             f"val_loss {val_loss:.4f} {metric_name} {val_metric:.4f} "
             f"({dt:.1f}s, {train_rate:.1f} ex/s) "
             f"kernels {json.dumps(_kernel_counts(train_multistep))}")
+        if rank > 0:
+            # the metrics are reduced over the ranks: each rank must print
+            # rank 0's numbers (the plateau controller reads them)
+            print(f"epoch {epoch} [rank {rank}]: val_loss {val_loss:.4f} "
+                  f"{metric_name} {val_metric:.4f}", flush=True)
         logger.log_scalars(
             {"train/loss": tr_loss, "train/acc": tr_acc,
              "val/loss": val_loss, f"val/{metric_name}": val_metric,

@@ -14,6 +14,7 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
+from leaf_tpu_torch.parallel.sync_batch_norm import sync_batch_norm
 from leaf_tpu_torch.training.state import TrainState
 
 __all__ = ["recalibrate_batch_stats"]
@@ -22,8 +23,8 @@ __all__ = ["recalibrate_batch_stats"]
 def recalibrate_batch_stats(state: TrainState, batches: Iterable,
                             generator: Optional[torch.Generator],
                             momentum_passes: int = 1,
-                            preprocess: Optional[Callable] = None
-                            ) -> TrainState:
+                            preprocess: Optional[Callable] = None,
+                            process_group=None) -> TrainState:
     """Refresh the BatchNorm running stats of ``state.model`` from data.
 
     Args:
@@ -36,6 +37,9 @@ def recalibrate_batch_stats(state: TrainState, batches: Iterable,
       preprocess: optional ``(generator, x) -> x`` run before the forward
         — pass the train step's wire decode + device augment so the stats
         are estimated on the input distribution the parameters saw.
+      process_group: under data parallelism, the group whose global batch
+        gives the statistics (``parallel.sync_batch_norm``), as the train
+        step takes them; every rank walks the same number of batches.
 
     With the momentum 0.99, N batches move the stats (1 − 0.99^N) of the
     way to the fresh estimate: ~100 batches recover 63 %, ~400 recover
@@ -46,7 +50,7 @@ def recalibrate_batch_stats(state: TrainState, batches: Iterable,
     was_training = model.training
     model.train()
     try:
-        with torch.no_grad():
+        with torch.no_grad(), sync_batch_norm(model, process_group):
             for _ in range(momentum_passes):
                 for batch in batches:
                     x = batch[0] if isinstance(batch, (tuple, list)) else batch

@@ -14,7 +14,10 @@ where the JAX package uses orbax:
   ``epoch_N_preempt``; ``best_checkpoint`` never returns a preempt save.
 
 Checkpoints load on the CPU and then move to the model's device, so one
-written on the card reads anywhere.
+written on the card reads anywhere. Under data parallelism only rank 0
+writes (``save_checkpoint``, ``save_hparams``) and every rank waits for it
+at a barrier after; every rank loads (the keys are the single-device ones:
+no wrapper adds a prefix).
 
 Pretrained weights, as the JAX module loads them, into a port model in
 place: ``apply_pretrained_frontend`` is the config's ``frontend.pretrained``
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from leaf_tpu_torch.parallel.distributed import barrier, rank
 from leaf_tpu_torch.training.state import (TrainState, rewind_steps,
                                            set_group_lr)
 
@@ -66,9 +70,19 @@ def save_checkpoint(exp_dir: str, state: TrainState, epoch: int,
     while the metadata epoch makes resume redo the interrupted epoch; its
     val_acc of -1 keeps it out of ``best_checkpoint``. ``meta.json`` is
     written last, and ``state.pt`` through a temporary file, so a save
-    cut short is never picked up.
+    cut short is never picked up. Under data parallelism rank 0 writes
+    and every rank waits at a barrier until it has.
     """
     path = _ckpt_dir(exp_dir, epoch, dir_suffix)
+    if rank() == 0:
+        _write_checkpoint(path, state, epoch, tr_loss, tr_acc, val_acc,
+                          scheduler_state, meta_epoch)
+    barrier()
+    return path
+
+
+def _write_checkpoint(path, state, epoch, tr_loss, tr_acc, val_acc,
+                      scheduler_state, meta_epoch) -> None:
     os.makedirs(path, exist_ok=True)
     blob = {
         "step": int(state.step),
@@ -88,7 +102,6 @@ def save_checkpoint(exp_dir: str, state: TrainState, epoch: int,
         meta["scheduler"] = scheduler_state
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f)
-    return path
 
 
 def _read_meta(path: str) -> Dict:
@@ -188,10 +201,13 @@ def best_checkpoint(exp_dir: str, key: str = "val_acc") -> Optional[str]:
 
 
 def save_hparams(exp_dir: str, cfg: dict) -> None:
-    """hparams.json ≙ the reference's hparams.pickle."""
-    os.makedirs(exp_dir, exist_ok=True)
-    with open(os.path.join(exp_dir, "hparams.json"), "w") as f:
-        json.dump(cfg, f, indent=2)
+    """hparams.json ≙ the reference's hparams.pickle (rank 0 writes it;
+    every rank waits)."""
+    if rank() == 0:
+        os.makedirs(exp_dir, exist_ok=True)
+        with open(os.path.join(exp_dir, "hparams.json"), "w") as f:
+            json.dump(cfg, f, indent=2)
+    barrier()
 
 
 def load_hparams(exp_dir: str) -> dict:

@@ -128,6 +128,8 @@ def optimization_helper(
     num_tr_steps_per_epoch: Optional[int] = None,
     num_epochs: Optional[int] = None,
     capturable: bool = False,
+    num_devices: int = 1,
+    per_device_lr_scaling: bool = False,
 ) -> Tuple[torch.optim.Optimizer,
            Optional[torch.optim.lr_scheduler.LambdaLR],
            Optional[ReduceLROnPlateau], str]:
@@ -144,10 +146,16 @@ def optimization_helper(
     ``capturable=True`` (its step counts on the device) and each group's
     lr a 0-d device tensor that the schedule and the plateau controller
     write in place (``state.set_group_lr``).
+
+    ``per_device_lr_scaling`` multiplies the cfg's lr by ``num_devices``
+    (the linear scaling rule for a global batch that grows with the
+    devices), as the JAX helper does; off by default.
     """
     cfg_opt = cfg["opt"]
     name = cfg_opt.get("optimizer", "Adam")
     lr = float(cfg_opt.get("lr", 1e-3))
+    if per_device_lr_scaling:
+        lr = lr * num_devices
     optimizer = _base_optimizer(name, cfg_opt, params, lr, capturable)
 
     scheduler_name = cfg_opt.get("scheduler", "reduce")

@@ -25,6 +25,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from leaf_tpu_torch.training.state import (TrainState, schedule_lrs,
@@ -96,13 +97,35 @@ def mixup(generator: Optional[torch.Generator], inputs: torch.Tensor,
 
 
 def _train_step_body(model_type: str, mixup_alpha: Optional[float],
-                     augment_fn: Optional[Callable]) -> Callable:
+                     augment_fn: Optional[Callable],
+                     process_group=None) -> Callable:
     """(state, x, y, generator) → metrics: augment, forward, loss and
     backward, with the gradients left in ``.grad`` and no update. Shared
     by ``make_train_step`` and the steps a ``make_train_multistep`` graph
-    captures."""
+    captures. With a ``process_group`` it is the data-parallel body
+    (``leaf_tpu_torch.parallel.data_parallel``): global-batch BatchNorm,
+    the loss scaled by this rank's share of the batch, and the gradients
+    and metrics summed over the ranks."""
     multilabel = model_type == "multilabel"
     loss_inner = bce_logits_loss if multilabel else cross_entropy_loss
+    if process_group is not None:
+        from leaf_tpu_torch.parallel.data_parallel import (
+            local_share, reduce_gradients_and_metrics_)
+        from leaf_tpu_torch.parallel.sync_batch_norm import sync_batch_norm
+
+    def forward(model, x, y, generator):
+        if mixup_alpha is None:
+            logits = model(x, generator)
+            return logits, loss_inner(logits, y)
+        if multilabel:
+            xx, yy, _, _ = mixup(generator, x, y, mixup_alpha, "multilabel")
+            logits = model(xx, generator)
+            return logits, loss_inner(logits, yy)
+        xx, y_a, y_b, lam = mixup(generator, x, y, mixup_alpha, "multiclass")
+        logits = model(xx, generator)
+        return logits, torch.mean(softmax_cross_entropy(logits, y_a) * lam
+                                  + softmax_cross_entropy(logits, y_b)
+                                  * (1.0 - lam))
 
     def body(state: TrainState, x: torch.Tensor, y: torch.Tensor,
              generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
@@ -110,29 +133,27 @@ def _train_step_body(model_type: str, mixup_alpha: Optional[float],
         x = waveform_from_wire(x)
         if augment_fn is not None:
             x = augment_fn(generator, x)
-        if mixup_alpha is None:
-            logits = model(x, generator)
-            loss = loss_inner(logits, y)
-        elif multilabel:
-            xx, yy, _, _ = mixup(generator, x, y, mixup_alpha, "multilabel")
-            logits = model(xx, generator)
-            loss = loss_inner(logits, yy)
+        if process_group is None:
+            logits, loss = forward(model, x, y, generator)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         else:
-            xx, y_a, y_b, lam = mixup(generator, x, y, mixup_alpha,
-                                      "multiclass")
-            logits = model(xx, generator)
-            loss = torch.mean(softmax_cross_entropy(logits, y_a) * lam
-                              + softmax_cross_entropy(logits, y_b)
-                              * (1.0 - lam))
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+            share = local_share(x.shape[0], x.device, process_group)
+            with sync_batch_norm(model, process_group):
+                logits, loss = forward(model, x, y, generator)
+                state.optimizer.zero_grad(set_to_none=True)
+                (loss * share).backward()
         if multilabel:
             correct = torch.zeros((), dtype=torch.int32, device=x.device)
         else:
             correct = (logits.detach().argmax(-1) == y).sum().to(torch.int32)
-        return {"loss": loss.detach(), "correct": correct,
-                "count": torch.full((), x.shape[0], dtype=torch.int32,
-                                    device=x.device)}
+        metrics = {"loss": loss.detach(), "correct": correct,
+                   "count": torch.full((), x.shape[0], dtype=torch.int32,
+                                       device=x.device)}
+        if process_group is not None:
+            reduce_gradients_and_metrics_(model, metrics, share,
+                                          process_group)
+        return metrics
 
     return body
 
@@ -147,7 +168,8 @@ def make_train_step(model_type: str = "multiclass",
                     mixup_alpha: Optional[float] = None,
                     augment_fn: Optional[Callable] = None,
                     watch_norms: bool = False,
-                    watch_histograms: bool = False) -> Callable:
+                    watch_histograms: bool = False,
+                    process_group=None) -> Callable:
     """Build the train step: (state, x, y, generator) → metrics.
 
     It updates ``state`` in place (model parameters and BatchNorm stats,
@@ -162,8 +184,16 @@ def make_train_step(model_type: str = "multiclass",
     step's ``wandb.watch`` scalars. ``watch_histograms`` also stashes the
     gradients by parameter name in ``metrics["_grads"]`` for
     ``training.histograms.histogram_tree`` at log steps.
+
+    ``process_group`` (e.g. ``parallel.data_group()``) makes it the
+    data-parallel step of the JAX package's GSPMD semantic: x and y are
+    this rank's rows, BatchNorm takes the global batch's statistics, and
+    the gradients, ``loss`` (global mean), ``correct`` and ``count``
+    (global sums) are reduced over the ranks before the update, so the
+    norms are the same on every rank.
     """
-    body = _train_step_body(model_type, mixup_alpha, augment_fn)
+    body = _train_step_body(model_type, mixup_alpha, augment_fn,
+                            process_group)
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
              generator: Optional[torch.Generator] = None
@@ -191,20 +221,24 @@ def make_train_step(model_type: str = "multiclass",
 def make_train_multistep(steps_per_call: int,
                          model_type: str = "multiclass",
                          mixup_alpha: Optional[float] = None,
-                         augment_fn: Optional[Callable] = None
-                         ) -> "TrainMultistep":
+                         augment_fn: Optional[Callable] = None,
+                         process_group=None) -> "TrainMultistep":
     """K train steps per call: (state, xs (K, B, T), ys (K, B[, C]),
     generator) → {'loss' (mean over the K steps), 'correct', 'count'
     (sums)} as device scalars, the numerics of K ``make_train_step`` calls.
 
     The counterpart of the JAX package's ``lax.scan`` of K steps. On a
     CUDA device it is one CUDA graph of K steps (``TrainMultistep``); on
-    the CPU the K steps run one after another.
+    the CPU the K steps run one after another. ``process_group`` makes
+    them data-parallel steps (see ``make_train_step``); the graph then
+    captures their NCCL collectives. gloo's cannot be captured: a call on
+    CUDA tensors over a gloo group raises.
     """
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be ≥ 1: {steps_per_call}")
     return TrainMultistep(steps_per_call, _train_step_body(
-        model_type, mixup_alpha, augment_fn))
+        model_type, mixup_alpha, augment_fn, process_group),
+        None if process_group is None else dist.get_backend(process_group))
 
 
 class TrainMultistep:
@@ -229,9 +263,11 @@ class TrainMultistep:
     pool (the K steps' activations, reused from step to step).
     """
 
-    def __init__(self, steps_per_call: int, body: Callable):
+    def __init__(self, steps_per_call: int, body: Callable,
+                 backend: Optional[str] = None):
         self.k = steps_per_call
         self._body = body
+        self._backend = backend   # of the data-parallel group, if any
         self._graph = None
         self._signature = None
         self.replays = 0
@@ -258,6 +294,11 @@ class TrainMultistep:
                              f"{tuple(xs.shape)}, ys {tuple(ys.shape)}")
         if not xs.is_cuda:
             return self._eager(state, xs, ys, generator)
+        if self._backend not in (None, "nccl"):
+            raise ValueError(
+                f"{self.k} data-parallel steps per call on the card are one "
+                f"CUDA graph, which captures NCCL collectives only, not "
+                f"{self._backend}'s; use NCCL or one step per call")
         signature = (tuple(xs.shape), xs.dtype, tuple(ys.shape), ys.dtype,
                      id(state.model), id(state.optimizer), id(generator))
         if self._graph is None:

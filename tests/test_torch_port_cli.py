@@ -281,20 +281,23 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
     ("--watch_histograms",), ("--use_packed_dataset",),
     ("--gcs_bucket_name", "b"), ("--n_devices", "2"), ("--multihost",)])
 def test_unported_flags_raise(flag, tmp_path):
-    # the multistep, watch and packed-shard flags are ported: they pass
-    # the refusal (tests/test_torch_port_multistep.py and
-    # tests/test_torch_port_packed.py run them); the rest raise
+    # every flag is ported: the multistep, watch and packed-shard flags
+    # parse (tests/test_torch_port_multistep.py and
+    # tests/test_torch_port_packed.py run them); the data-parallel flags
+    # run under a launcher (tests/test_torch_port_parallel.py) and without
+    # one raise with the torchrun command line
     from leaf_tpu_torch import train
     root = make_tiny_exp(tmp_path)
     argv = ["--cfg_file", str(root / "cfg.cfg"), "--expdir",
             str(tmp_path / "exp"), "--device", "cpu", *flag]
-    if flag[0] in ("--steps_per_call", "--wandb_watch_model",
-                   "--watch_histograms", "--use_packed_dataset",
-                   "--gcs_bucket_name"):
-        train._refuse_unported(train.parse_args(argv))
+    assert not hasattr(train, "_refuse_unported")
+    if flag[0] not in ("--n_devices", "--multihost"):
+        train.parse_args(argv)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    with pytest.raises(RuntimeError, match="torch.distributed.run "
+                       "--nproc_per_node [12] -m leaf_tpu_torch.train"):
         train.main(argv)
+    assert not (tmp_path / "exp").exists()
 
 
 def test_train_bf16_then_evaluate(tmp_path, capsys, few_threads):

@@ -585,12 +585,14 @@ def _small_state(device, capturable, cfg=SMALL):
     return TrainState(model, opt, sched)
 
 
-def _replay_against_eager(device, bf16):
-    """A replay of a K = 3 step graph and 3 eager steps from copies of the
-    same state and generator state (augment, dropout and drop-connect on,
-    B=8). Returns (the replay's metrics, the eager steps' metrics, the
-    two states, the parameters before, the two generators, the eager
-    steps' logits)."""
+def _replay_against_eager(device, bf16, k=3, process_group=None):
+    """A replay of a K-step graph (K = 3) and K eager steps from copies of
+    the same state and generator state (augment, dropout and drop-connect
+    on, B=8; the data-parallel steps with a ``process_group``). Returns
+    (the replay's metrics, the eager steps' metrics, the two states, the
+    parameters before, the two generators, the eager steps' logits, and a
+    function that runs the K eager steps once more from the same state
+    and generator state and returns that third state)."""
     import copy
 
     from leaf_tpu_torch.data import leaf_device_augment
@@ -600,10 +602,11 @@ def _replay_against_eager(device, bf16):
         cfg = {**SMALL, "frontend": {**SMALL["frontend"],
                                      "compute_dtype": "bfloat16"},
                "model": {**SMALL["model"], "compute_dtype": "bfloat16"}}
-    k, sfx = 3, "_bf16" if bf16 else ""
+    sfx = "_bf16" if bf16 else ""
     st = _small_state(device, True, cfg)
     gen = torch.Generator(device=device).manual_seed(3)
-    multi = make_train_multistep(k, augment_fn=leaf_device_augment)
+    multi = make_train_multistep(k, augment_fn=leaf_device_augment,
+                                 process_group=process_group)
     rng = np.random.RandomState(3)
     groups = [(torch.from_numpy((rng.randn(k, 8, 16000) * 0.1)
                                 .astype(np.float32)).to(device),
@@ -612,19 +615,28 @@ def _replay_against_eager(device, bf16):
     multi(st, *groups[0], gen)
     assert multi.per_replay == {"fwd_save" + sfx: k, "bwd" + sfx: k}
     p0 = [p.detach().clone() for p in st.model.parameters()]
-    twin = _small_state(device, True, cfg)
-    twin.model.load_state_dict(st.model.state_dict())
-    twin.optimizer.load_state_dict(copy.deepcopy(st.optimizer.state_dict()))
-    twin.scheduler.load_state_dict(st.scheduler.state_dict())
-    twin.step = st.step
-    tgen = torch.Generator(device=device)
-    tgen.set_state(gen.get_state())
+    blob = (copy.deepcopy(st.model.state_dict()),
+            copy.deepcopy(st.optimizer.state_dict()),
+            st.scheduler.state_dict(), st.step, gen.get_state())
+    step = make_train_step(augment_fn=leaf_device_augment,
+                           process_group=process_group)
+
+    def eager_twin():
+        twin = _small_state(device, True, cfg)
+        twin.model.load_state_dict(blob[0])
+        twin.optimizer.load_state_dict(copy.deepcopy(blob[1]))
+        twin.scheduler.load_state_dict(blob[2])
+        twin.step = blob[3]
+        tgen = torch.Generator(device=device)
+        tgen.set_state(blob[4])
+        return twin, tgen
+
+    twin, tgen = eager_twin()
     before = fused.launch_counts()
     got = multi(st, *groups[1], gen)
     assert fused.launch_counts() == before   # a replay is not counted
     assert multi.replays == 1
     assert multi.graph_launch_counts() == multi.per_replay
-    step = make_train_step(augment_fn=leaf_device_augment)
     logits = []
     hook = twin.model.register_forward_hook(
         lambda mod, inp, out: logits.append(out.detach().clone()))
@@ -634,7 +646,14 @@ def _replay_against_eager(device, bf16):
     assert st.step == twin.step == 2 * k
     assert st.scheduler.last_epoch == twin.scheduler.last_epoch == 2 * k
     assert int(got["count"]) == 8 * k
-    return got, ref, st, twin, p0, gen, tgen, logits
+
+    def again():
+        third, g3 = eager_twin()
+        for i in range(k):
+            step(third, groups[1][0][i], groups[1][1][i], g3)
+        return third
+
+    return got, ref, st, twin, p0, gen, tgen, logits, again
 
 
 def _near_ties(logits) -> int:
@@ -648,6 +667,23 @@ def _near_ties(logits) -> int:
     return n
 
 
+# the replay's update against the eager steps' update, ‖Δ − Δ_eager‖ /
+# ‖Δ_eager‖, is held to max(REPLAY_FLOOR, REPLAY_NOISE_MULT × the same
+# measure between two eager runs from the same state in this test): the
+# order of cuDNN's sums alone moves this measure, so the noise floor of
+# the run decides, with the earlier fixed bound kept as the floor
+REPLAY_FLOOR, REPLAY_NOISE_MULT = 3e-2, 2.0
+
+
+def _update_rel(a, b, p0) -> float:
+    num = den = 0.0
+    for p, q, r in zip(a.model.parameters(), b.model.parameters(), p0):
+        num += float(((p - q) ** 2).sum())
+        den += float(((q - r) ** 2).sum())
+    assert den > 0
+    return (num / den) ** 0.5
+
+
 @pytest.mark.parametrize("bf16", [False, True])
 def test_multistep_graph_matches_eager_steps(cuda_device, bf16):
     # a replay of the K-step graph against K eager steps from copies of
@@ -656,15 +692,15 @@ def test_multistep_graph_matches_eager_steps(cuda_device, bf16):
     # gradients sum in no fixed order), and at B=8 Adam turns gradient
     # entries at float-noise level into lr-sized updates of either sign,
     # so the parameters are held as chip_smoke.py holds two train runs:
-    # the update Δ = p − p₀ to 3e-2 of its norm; the loss mean to 1e-5
-    # (f32) or three bf16 ulps (measured up to 0.57 by
+    # the update Δ = p − p₀ against the eager one to the bound above; the
+    # loss mean to 1e-5 (f32) or three bf16 ulps (measured up to 0.57 by
     # scripts/replay_determinism.py). Under deterministic
     # algorithms the two are bit-equal (the test below), so in bf16 the
     # count of correct clips may differ only by the clips whose top two
     # logits lie within one bf16 ulp, where the argmax flips with the
     # sums' order
-    got, ref, st, twin, p0, gen, tgen, logits = _replay_against_eager(
-        cuda_device, bf16)
+    got, ref, st, twin, p0, gen, tgen, logits, again = (
+        _replay_against_eager(cuda_device, bf16))
     ref_loss = torch.stack([m["loss"] for m in ref]).float().mean()
     torch.testing.assert_close(got["loss"].float(), ref_loss, atol=0,
                                rtol=3 * 2 ** -7 if bf16 else 1e-5)
@@ -672,11 +708,12 @@ def test_multistep_graph_matches_eager_steps(cuda_device, bf16):
     ties = _near_ties(logits) if bf16 else 0
     assert abs(int(got["correct"]) - ref_correct) <= ties, (
         int(got["correct"]), ref_correct, ties)
-    num = den = 0.0
-    for p, q, r in zip(st.model.parameters(), twin.model.parameters(), p0):
-        num += float(((p - q) ** 2).sum())
-        den += float(((q - r) ** 2).sum())
-    assert den > 0 and (num / den) ** 0.5 < 3e-2, (num / den) ** 0.5
+    replay = _update_rel(st, twin, p0)
+    noise = _update_rel(again(), twin, p0)
+    bound = max(REPLAY_FLOOR, REPLAY_NOISE_MULT * noise)
+    print(f"replay vs eager {replay:.4e}, eager vs eager {noise:.4e}, "
+          f"bound {bound:.4e}")
+    assert replay < bound, (replay, noise)
     assert gen.get_state().equal(tgen.get_state())
 
 
@@ -707,7 +744,7 @@ def test_multistep_graph_bit_equals_eager_when_deterministic(
     # with deterministic algorithms a replay runs the eager steps' kernels
     # on the same inputs in the same order: the loss, the counts, every
     # parameter and buffer and the generator state are bit-equal
-    got, ref, st, twin, _, gen, tgen, _ = _replay_against_eager(
+    got, ref, st, twin, _, gen, tgen, _, _ = _replay_against_eager(
         cuda_device, bf16)
     ref_loss = torch.stack([m["loss"] for m in ref]).float().mean()
     assert torch.equal(got["loss"].float(), ref_loss)
@@ -845,3 +882,143 @@ def test_train_cli_watch_flags_on_card(cuda_device, tmp_path):
     m = re.search(r"epoch 0: tr_loss (\S+) .* kernels (\{.*\})", res.stdout)
     assert m and np.isfinite(float(m.group(1))), res.stdout[-2000:]
     assert json.loads(m.group(2))["fwd_save"] == 6
+
+
+# ------------------------------------------------------ data parallelism
+# One card: world 1 on NCCL in this process (every collective issued, a
+# sum of one term: bit-equal to the plain step under deterministic
+# algorithms), world 2 on gloo with both ranks on cuda:0 (spawned by
+# tests/torch_parallel_worker.py). tests/test_torch_port_parallel.py holds
+# the same steps against the JAX package on the CPU.
+
+@pytest.fixture
+def nccl_world1(cuda_device, tmp_path):
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+DP_CFG = {**SMALL, "model": {**SMALL["model"], "dropout_rate": 0.0,
+                             "drop_connect_rate": 0.0}}
+
+
+def _bf16_cfg(cfg):
+    return {**cfg, "frontend": {**cfg["frontend"],
+                                "compute_dtype": "bfloat16"},
+            "model": {**cfg["model"], "compute_dtype": "bfloat16"}}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dp_world_of_one_bit_equals_the_plain_step(nccl_world1,
+                                                   deterministic, bf16):
+    from leaf_tpu_torch.parallel import make_mesh, make_shard_map_train_step
+    from leaf_tpu_torch.training import make_train_step
+    cfg = _bf16_cfg(DP_CFG) if bf16 else DP_CFG
+    x = next(_operands(8, 16000, 40, torch.device("cuda")))
+    y = torch.arange(8, device="cuda") % 5
+    runs = []
+    for step in (make_train_step(), make_train_step(process_group=nccl_world1),
+                 make_shard_map_train_step(make_mesh(1))):
+        st = _small_state(torch.device("cuda"), False, cfg)
+        losses = torch.stack([step(st, x, y)["loss"] for _ in range(2)])
+        runs.append((losses, st.model.state_dict()))
+    for losses, sd in runs[1:]:
+        assert torch.equal(losses, runs[0][0])
+        for name, t in sd.items():
+            assert torch.equal(t, runs[0][1][name]), name
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dp_graph_of_four_steps_bit_equals_eager(nccl_world1, deterministic,
+                                                 bf16):
+    # the K=4 graph captures the data-parallel step's NCCL collectives
+    got, ref, st, twin, _, gen, tgen, _, _ = _replay_against_eager(
+        torch.device("cuda"), bf16, k=4, process_group=nccl_world1)
+    # the mean of the K losses as the graph forms it (in the loss's dtype)
+    ref_loss = torch.stack([m["loss"] for m in ref]).mean()
+    assert torch.equal(got["loss"], ref_loss)
+    assert int(got["correct"]) == sum(int(m["correct"]) for m in ref)
+    for (name, a), b in zip(st.model.state_dict().items(),
+                            twin.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    assert gen.get_state().equal(tgen.get_state())
+
+
+def test_dp_multistep_over_gloo_on_card_raises(cuda_device, tmp_path):
+    import torch.distributed as dist
+
+    from leaf_tpu_torch.training import make_train_multistep
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        st = _small_state(cuda_device, True)
+        xs = torch.zeros(2, 4, 16000, device=cuda_device)
+        ys = torch.zeros(2, 4, dtype=torch.int64, device=cuda_device)
+        with pytest.raises(ValueError, match="NCCL"):
+            make_train_multistep(2, process_group=dist.group.WORLD)(st, xs,
+                                                                    ys)
+        assert st.step == 0
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dp_world_of_two_on_one_card_matches_the_joined_batch(cuda_device,
+                                                              tmp_path):
+    # two gloo ranks on cuda:0, each on its half of 16 clips, against the
+    # plain step on all 16: loss 2e-4, BN running stats 1e-5 of the
+    # layer's scale, the replicas equal, one saving-forward and one
+    # backward launch on each rank; per-replica BatchNorm misses the stats
+    from leaf_tpu_torch.models.common import BatchNorm2d
+    from leaf_tpu_torch.training import make_train_step
+    from tests.torch_parallel_worker import run_world
+    rng = np.random.RandomState(4)
+    x = (rng.randn(16, 16000) * 0.1).astype(np.float32)
+    x[8:] *= 3.0
+    y = (np.arange(16) % 5).astype(np.int64)
+    st = _small_state(cuda_device, False, DP_CFG)
+    sd = {k: v.cpu().numpy() for k, v in st.model.state_dict().items()}
+    ranks = run_world(tmp_path, {"tasks": ["dp_step"], "cfg": DP_CFG,
+                                 "state_dict": sd, "x": x, "y": y,
+                                 "device": "cuda:0"})
+    m = make_train_step()(st, torch.from_numpy(x).to(cuda_device),
+                          torch.from_numpy(y).to(cuda_device))
+    ref = {k: v.cpu().numpy() for k, v in st.model.state_dict().items()}
+
+    def stats_err(got):
+        worst = 0.0
+        for name, mod in st.model.named_modules():
+            if isinstance(mod, BatchNorm2d):
+                var = ref[name + ".running_var"]
+                worst = max(worst, np.abs(got[name + ".running_mean"]
+                                          - ref[name + ".running_mean"]).max()
+                            / np.sqrt(var).max(),
+                            np.abs(got[name + ".running_var"] - var).max()
+                            / var.max())
+        return worst
+
+    for r in ranks:
+        g = r["dp_step"]["global"]
+        assert abs(g["metrics"]["loss"] - float(m["loss"])) <= (
+            2e-4 * abs(float(m["loss"])))
+        assert g["metrics"]["count"] == 16
+        assert g["launches"]["fwd_save"] == g["launches"]["bwd"] == 1
+        assert stats_err(g["sd"]) < 1e-5
+        assert stats_err(r["dp_step"]["per_replica"]["sd"]) > 1e-3
+    a, b = (r["dp_step"]["global"]["sd"] for r in ranks)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_dryrun_multichip_on_the_card(cuda_device, capsys):
+    # the dry run's default: one NCCL rank per card, here on every card
+    # of the machine (the CUDA graph of its K = 2 call captures NCCL)
+    from leaf_tpu_torch.dryrun import dryrun_multichip
+    n = torch.cuda.device_count()
+    line = dryrun_multichip(n)
+    assert f"dryrun_multichip({n}): ok" in line
+    assert "bit-identical" in capsys.readouterr().out

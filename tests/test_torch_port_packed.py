@@ -533,8 +533,9 @@ def test_train_cli_packed_refuses_int16_wire(tmp_path):
 
 @pytest.mark.parametrize("flag", [("--n_devices", "2"), ("--multihost",)])
 def test_data_parallel_flags_still_raise(tmp_path, flag):
+    # without a launcher: the torchrun command line to use
     root = _packed_exp(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         train.main(["--cfg_file", str(root / "packed.cfg"), "--expdir",
                     str(root / "exp"), "--device", "cpu",
                     "--use_packed_dataset", *flag])
