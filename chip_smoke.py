@@ -137,6 +137,16 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   launch counts) and ``evaluate --n_devices 1`` on
                   [cli]'s task, and the one-device evaluate of the same
                   checkpoint (the same accuracy)
+11d. converge   — two rows of CONVERGENCE.md through ``python -m
+                  leaf_tpu_torch.synthetic_convergence`` (2560 train clips
+                  of the 35-class tone task, B=256, bf16): the flagship
+                  b0 for 40 epochs scored after ``--bn_recalibrate 400``,
+                  and ResNet-18 for 40 epochs; each reaches test accuracy
+                  0.95, and its train run launched the bf16 saving forward
+                  and backward once per step (400) and no f32 kernel; the
+                  raw final val accuracy, the train wall time and the
+                  launch counts are logged. The two rows run side by side
+                  (each its own --root), beside [dp-cli]
 12. report       — card name and power limit, the ``kernels`` JSON line (six
                   kernels: f32 and bf16), and the last line
                   ``{"ok": true, "device": {...}}``
@@ -150,6 +160,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2390,14 +2401,11 @@ def _write_tone_task(root: str) -> None:
                              f'meta_root: "{root}"'))
 
 
-def _cli(module: str, args, tag: str, sigterm_after_steps: int = 0,
-         torchrun: int = 0):
-    """Run ``python -m leaf_tpu_torch.<module>`` (under ``torchrun
-    --standalone --nproc_per_node N`` with ``torchrun`` N); returns its
-    stdout. With ``sigterm_after_steps`` it is sent SIGTERM after that
-    many step lines. Fails on a non-zero exit; never leaves the process
-    running."""
-    import signal
+def _spawn(module: str, args, torchrun: int = 0, stdout=subprocess.PIPE):
+    """Start ``python -m leaf_tpu_torch.<module>`` (under ``torchrun
+    --standalone --nproc_per_node N`` with ``torchrun`` N) from the
+    checkout, stderr into stdout, in a session of its own (so _stop
+    reaches the processes it starts)."""
     here = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-u", "-m", f"leaf_tpu_torch.{module}", *args]
     if torchrun:
@@ -2405,10 +2413,26 @@ def _cli(module: str, args, tag: str, sigterm_after_steps: int = 0,
                     "--nproc_per_node", str(torchrun), "-m"]
     env = {**os.environ,
            "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    return subprocess.Popen(cmd, stdout=stdout, stderr=subprocess.STDOUT,
+                            text=True, env=env, cwd=here,
+                            start_new_session=True)
+
+
+def _stop(proc) -> None:
+    """Kill ``proc`` and every process of its session, if it still runs."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _cli(module: str, args, tag: str, sigterm_after_steps: int = 0,
+         torchrun: int = 0):
+    """Run ``python -m leaf_tpu_torch.<module>`` (``_spawn``); returns its
+    stdout. With ``sigterm_after_steps`` it is sent SIGTERM after that
+    many step lines. Fails on a non-zero exit; never leaves the process,
+    or a process it started, running."""
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True, env=env,
-                            cwd=here)
+    proc = _spawn(module, args, torchrun)
     try:
         lines, steps = [], 0
         if sigterm_after_steps:
@@ -2421,9 +2445,7 @@ def _cli(module: str, args, tag: str, sigterm_after_steps: int = 0,
                         break
         rest, _ = proc.communicate(timeout=CLI_TIMEOUT)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        _stop(proc)
     out = "".join(lines) + (rest or "")
     wall = time.perf_counter() - t0
     for line in out.splitlines():
@@ -2905,6 +2927,84 @@ def phase_packed(tmp: str, cli: dict) -> None:
         + ", ".join(f"epoch {i} {r:.0f}" for i, r in enumerate(csv_rates)))
 
 
+# ------------------------------------------------------------- [converge]
+# Two rows of CONVERGENCE.md through the port's harness at its defaults
+# (2560 train clips, 320 val and 320 test, B=256, bf16): (arch, epochs,
+# --bn_recalibrate). The flagship's short horizon is scored after BN
+# recalibration (its raw val accuracy lags with the 0.99 EMA and is only
+# logged); ResNet-18's BN (momentum 0.9) needs none. The rows run side by
+# side, beside [dp-cli], which times nothing: each is a process with its
+# own launch counts, and the script's hosts vary ~2× in speed, so in turn
+# they would take [done] to the 1200 s limit.
+CONVERGE_ROWS = (("efficientnet:b0", 40, 400), ("resnet:18", 40, 0))
+CONVERGE_CLIPS, CONVERGE_B = 2560, 256
+CONVERGE_BAR = 0.95       # scripts/synthetic_convergence.py's bar
+CONVERGE_TIMEOUT = 600    # seconds for both rows, data and evaluation included
+
+
+def converge_start(tmp: str) -> list:
+    """Start ``python -m leaf_tpu_torch.synthetic_convergence`` for each row
+    of CONVERGE_ROWS, each in a --root of its own, output to a file;
+    returns [(row, process, output path)]."""
+    runs = []
+    try:
+        for arch, epochs, recal in CONVERGE_ROWS:
+            name = arch.replace(":", "")
+            path = os.path.join(tmp, f"{name}.log")
+            with open(path, "w") as out:
+                proc = _spawn("synthetic_convergence", [
+                    "--arch", arch, "--epochs", str(epochs), "--root",
+                    os.path.join(tmp, name), "--bn_recalibrate", str(recal)],
+                    stdout=out)
+            runs.append(((arch, epochs, recal), proc, path))
+    except BaseException:
+        for _, proc, _ in runs:
+            _stop(proc)
+        raise
+    return runs
+
+
+def converge_finish(runs: list, deadline: float) -> None:
+    """Wait for the rows (killed at ``deadline``, perf_counter time); each
+    reaches test accuracy CONVERGE_BAR, and its train run launched the
+    bf16 saving forward and backward once per step, a bf16 primal forward
+    per val batch, and no f32 kernel."""
+    try:
+        for (arch, epochs, recal), proc, path in runs:
+            tag = (f"synthetic_convergence --arch {arch} --epochs {epochs} "
+                   f"--bn_recalibrate {recal}")
+            try:
+                proc.wait(timeout=max(0.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{tag}: not done in "
+                                     f"{CONVERGE_TIMEOUT} s")
+            with open(path) as f:
+                out = f.read()
+            for ln in out.splitlines():
+                log(f"[converge]   {ln}")
+            log(f"[converge] {tag}: exit {proc.returncode}")
+            if proc.returncode != 0:
+                raise AssertionError(f"{tag} exited {proc.returncode}")
+            line = json.loads([ln for ln in out.splitlines()
+                               if ln.startswith('{"metric"')][-1])
+            k, steps = line["kernels"], epochs * (CONVERGE_CLIPS // CONVERGE_B)
+            log(f"[converge] {arch}, {epochs} epochs ({steps} steps at "
+                f"B={CONVERGE_B}, bf16): test accuracy {line['value']} (bar "
+                f"{CONVERGE_BAR}; BN recalibrated on {recal} batches), raw "
+                f"final val accuracy {line['final_val_metric']}, train wall "
+                f"{line['train_wall_s']} s, kernels {json.dumps(k)}")
+            if (k["fwd_save_bf16"] != steps or k["bwd_bf16"] != steps
+                    or k["fwd_bf16"] < epochs
+                    or k["fwd"] or k["fwd_save"] or k["bwd"]):
+                raise AssertionError(f"{tag}: launches {k}, {steps} steps")
+            if not line["value"] >= CONVERGE_BAR:
+                raise AssertionError(f"{tag}: test accuracy {line['value']} "
+                                     f"< {CONVERGE_BAR}")
+    finally:
+        for _, proc, _ in runs:
+            _stop(proc)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2963,7 +3063,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="leaf_cli_") as tmp:
         cli = timed("cli", phase_cli, tmp)
         timed("packed", phase_packed, tmp, cli)
-        timed("dp-cli", phase_dp_cli, tmp)
+        with tempfile.TemporaryDirectory(prefix="leaf_converge_") as ctmp:
+            start = time.perf_counter()
+            runs = converge_start(ctmp)
+            try:
+                timed("dp-cli", phase_dp_cli, tmp)
+            except BaseException:
+                for _, proc, _ in runs:
+                    _stop(proc)
+                raise
+            converge_finish(runs, start + CONVERGE_TIMEOUT)
+            log(f"[converge] phase took {time.perf_counter() - start:.1f} s "
+                f"(beside [dp-cli])")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -143,22 +143,33 @@ def _forward(model, x: torch.Tensor, group) -> torch.Tensor:
     return all_gather_rows(mine, group)[:n]
 
 
-def _recalibrate(args, state: TrainState, ac: dict, sr: int, device) -> None:
+def _recalibrate(args, state: TrainState, cfg: dict, sr: int,
+                 device) -> None:
     """BN statistics from random train-manifest crops, peak-normalized
     like training, with the parameters frozen (under data parallelism
     every rank walks the same batches and the statistics are reduced, so
-    the replicas stay equal)."""
+    the replicas stay equal). The clips are decoded once and kept when
+    the run's cfg keeps its data in memory (``data.in_memory``), as the
+    train CLI does: N batches may walk a short manifest many times."""
+    ac = cfg["audio_config"]
     tr_clip = int(float(ac.get("random_clip_size", 1.0)) * sr)
     recal_set = RawWaveformDataset(
         os.path.join(args.meta_dir, args.train_csv_name),
         os.path.join(args.meta_dir, "lbl_map.json"),
         ac, mode=args.metrics,
         transform=leaf_host_crop_transforms(True, tr_clip),
-        delimiter=args.separator)
+        delimiter=args.separator,
+        in_memory=bool(cfg.get("data", {}).get("in_memory", False)))
     recal_loader, _ = setup_dataloaders(
         recal_set, None, args.recal_batch_size, target_len=tr_clip,
         multiclass=args.metrics == "multiclass", num_workers=2,
         need_val=False)
+    if len(recal_loader) == 0:
+        # the batches below would cycle an empty loader for ever
+        raise ValueError(
+            f"--bn_recalibrate: {args.train_csv_name} holds "
+            f"{len(recal_set)} clips, fewer than one batch of "
+            f"--recal_batch_size {args.recal_batch_size}")
     place = pinned_placer(device)
 
     def recal_batches(n):
@@ -232,7 +243,7 @@ def _evaluate(args, rank: int, world: int, device) -> int:
           f"compute dtype: frontend {model.features.compute_dtype}, model "
           f"{model.model.compute_dtype}")
     if args.bn_recalibrate > 0:
-        _recalibrate(args, state, ac, sr, device)
+        _recalibrate(args, state, cfg, sr, device)
 
     clips, labels = zip(*(test_set[i] for i in range(len(test_set))))
     if world > 1:

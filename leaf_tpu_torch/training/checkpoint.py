@@ -22,6 +22,7 @@ no wrapper adds a prefix).
 Pretrained weights, as the JAX module loads them, into a port model in
 place: ``apply_pretrained_frontend`` is the config's ``frontend.pretrained``
 (a converted leaf-pytorch frontend, ``frontend_params.npz`` from
+``python -m leaf_tpu_torch.convert_torch_checkpoint`` or
 ``scripts/convert_torch_checkpoint.py``, or a checkpoint directory of a
 port run, e.g. one ``scripts/leaf_tpu_to_torch_checkpoint.py`` wrote
 from a ``leaf_tpu`` run); ``load_pretrained_backbone`` copies a
@@ -118,13 +119,15 @@ def load_checkpoint(path: str, state: TrainState, with_opt: bool = True
 
     ``with_opt=False`` restores only the step and the model (parameters
     and BatchNorm buffers) — for evaluation, whose state carries no
-    training optimizer.
+    training optimizer. A checkpoint saved without an optimizer (an
+    imported reference classifier) leaves ``state``'s optimizer and
+    scheduler as they are.
     """
     blob = torch.load(os.path.join(path, _STATE_FILE), map_location="cpu",
                       weights_only=True)
     state.model.load_state_dict(blob["model"])
     state.step = int(blob["step"])
-    if with_opt:
+    if with_opt and blob["optimizer"] is not None:
         live = [(g["lr"], g.get("capturable")) for g in
                 state.optimizer.param_groups]
         state.optimizer.load_state_dict(blob["optimizer"])
@@ -242,7 +245,7 @@ def _copy_into(module: nn.Module, values: Dict[str, object],
 
 def load_converted_frontend(npz_dir: str, model: nn.Module) -> nn.Module:
     """Load a converted leaf-pytorch frontend (``frontend_params.npz`` in
-    ``npz_dir``, scripts/convert_torch_checkpoint.py) into a port
+    ``npz_dir``, from ``leaf_tpu_torch.convert_torch_checkpoint``) into a port
     ``Classifier``'s ``features`` (or into a ``Leaf``), in place.
 
     The npz holds the JAX paths (``complex_conv/kernel``,

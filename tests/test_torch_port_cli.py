@@ -196,6 +196,45 @@ def test_evaluate_writes_results_and_skips_if_present(trained_exp, capsys,
     assert all(np.isfinite(values)) and 0 <= values[0] <= 1, row
 
 
+def test_evaluate_recalibration_refuses_a_short_manifest(trained_exp,
+                                                         few_threads):
+    # 24 train clips make no batch of 32: raise, never cycle an empty
+    # loader for ever
+    root, expdir, _ = trained_exp
+    res_path = expdir / "results.txt"
+    if res_path.exists():
+        res_path.unlink()
+    with pytest.raises(ValueError, match="24 clips, fewer than one batch"):
+        evaluate.main(_eval_args(root, expdir, (
+            "--bn_recalibrate", "1", "--recal_batch_size", "32")))
+    assert not res_path.exists()
+
+
+@pytest.mark.parametrize("in_memory", [False, True])
+def test_evaluate_recalibration_keeps_clips_in_memory_per_the_cfg(
+        in_memory, trained_exp, tmp_path, monkeypatch, few_threads):
+    # 12 batches of 4 walk the 24 train clips twice: decoded twice, or
+    # once and kept when the run's cfg has data.in_memory
+    root, expdir, _ = trained_exp
+    exp = tmp_path / "exp"
+    os.makedirs(exp)
+    os.symlink(expdir / "epoch_000", exp / "epoch_000")
+    cfg = json.loads((expdir / "hparams.json").read_text())
+    cfg["data"]["in_memory"] = in_memory
+    (exp / "hparams.json").write_text(json.dumps(cfg))
+    from leaf_tpu_torch.data import dataset
+    reads = []
+    real = dataset.load_audio
+    monkeypatch.setattr(dataset, "load_audio",
+                        lambda f, *a, **k: reads.append(f) or real(f, *a,
+                                                                   **k))
+    assert evaluate.main(_eval_args(root, exp, (
+        "--bn_recalibrate", "12", "--recal_batch_size", "4"))) == 0
+    train_reads = [f for f in reads if os.path.basename(f).startswith("c")]
+    assert len(train_reads) == (24 if in_memory else 48)
+    assert (exp / "results.txt").exists()
+
+
 @pytest.mark.parametrize("t", [1, 159, 16000, 16001, 23456, 48000])
 def test_pad_to_windows_matches_jax(t):
     import evaluate as jax_evaluate

@@ -60,12 +60,25 @@ def _synthetic_convergence_cfg(tmp_path):
     return path
 
 
+def _port_synthetic_convergence_cfg(tmp_path):
+    from leaf_tpu_torch.synthetic_convergence import CFG
+    text = CFG.format(arch="resnet", depth="18", task="multilabel",
+                      warmup=6, batch=256, root=tmp_path,
+                      train_csv="train_multilabel.csv",
+                      val_csv="val_multilabel.csv",
+                      test_csv="test_multilabel.csv")
+    path = tmp_path / "port_synthetic.cfg"
+    path.write_text(text)
+    return path
+
+
 def _preemption_cfg(tmp_path):
     from tests.test_preemption import make_tiny_exp
     return make_tiny_exp(tmp_path) / "cfg.cfg"
 
 
 @pytest.mark.parametrize("make", [_synthetic_convergence_cfg,
+                                  _port_synthetic_convergence_cfg,
                                   _preemption_cfg])
 def test_script_and_test_cfgs_match_jax(make, tmp_path):
     path = make(tmp_path)

@@ -394,6 +394,23 @@ def test_train_cli_bf16_launches_the_bf16_kernels(cuda_device, tmp_path):
                                       "bwd_bf16": 6}
 
 
+def test_synthetic_convergence_runs_the_bf16_kernels(cuda_device, tmp_path):
+    env = {**os.environ, "PYTHONPATH": REPO}
+    res = subprocess.run(
+        [sys.executable, "-u", "-m", "leaf_tpu_torch.synthetic_convergence",
+         "--clips", "70", "--batch", "35", "--epochs", "2", "--root",
+         str(tmp_path)], capture_output=True, text=True, timeout=600,
+        env=env, cwd=REPO)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["arch"] == "efficientnet:b0" and 0 <= line["value"] <= 1
+    # 70 clips / B=35: 2 steps per epoch, each one bf16 saving forward and
+    # one bf16 backward; 35 val clips: one bf16 primal forward per epoch
+    assert line["kernels"] == {"fwd": 0, "fwd_save": 0, "bwd": 0,
+                               "fwd_bf16": 2, "fwd_save_bf16": 4,
+                               "bwd_bf16": 4}
+
+
 def test_leaf_auto_takes_the_kernel(cuda_device):
     x = next(_operands(2, 16000, 40, cuda_device))
     on = Leaf(device=cuda_device)

@@ -279,7 +279,9 @@ def test_port_imports_no_jax():
     assert len(sources) > 10
     assert {"streaming.py", "serving.py", "export_serving.py",
             "histograms.py", "steps.py", "msgpack_lite.py",
-            "pack_dataset.py", "pretrained.py"} <= {p.name for p in sources}
+            "pack_dataset.py", "pretrained.py", "synthetic_convergence.py",
+            "import_torch_classifier.py", "convert_torch_checkpoint.py"} <= {
+                p.name for p in sources}
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
               "leaf_tpu", "yaml", "pandas", "soundfile", "msgpack",
               "msgpack_numpy", "google"}
