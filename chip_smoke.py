@@ -44,9 +44,16 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   bf16 against f32 on a tone task (the JAX test's bounds)
 7. timings      — each kernel (f32 and bf16), its plain version and the
                   cuDNN composition at B=256, T=16000 (CUDA events), and
-                  at B=128, T=80000, F=64 (``[timing-audioset]``);
-                  serving latency per bucket, f32 and bf16; the train step
-                  fused, 'off' and bf16, with a torch.profiler split
+                  the kernels and the composition at B=128, T=80000, F=64
+                  (``[timing-audioset]``); serving latency per bucket, f32
+                  and bf16; the train step fused, 'off' and bf16, with a
+                  torch.profiler split. The timers, profile readers,
+                  peaks, bounds and work counts are those of
+                  ``leaf_tpu_torch.scripts`` (``_measure``), and these
+                  phases call its tools (kernel_microbench,
+                  serving_latency, step_profile, scan_ab, e2e_gap), which
+                  also measure what the smoke leaves out (the AudioSet
+                  plain versions, K = 8 and 16)
 8. stream       — the streaming frontend (``LeafStreamer``, seeded
                   flagship Leaf): 64 streams of 1 s and 8 of 3 s with a
                   flush remainder in 1600-sample chunks, held against the
@@ -65,7 +72,7 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   state and generator state (augment, dropout and
                   drop-connect on), 4 saving-forward and 4 backward
                   launches of the dtype's kernels per replay in the
-                  profiler, host ms per step at K = 1 (eager), 4 and 8
+                  profiler, host ms per step at K = 1 (eager) and 4
                   (graph) with device-busy time, idle share and pool size
 10a. dp         — data parallelism at B=256 per rank, the flagship cfg:
                   world 1 on NCCL in this process (f32 and bf16): the
@@ -169,6 +176,13 @@ import time
 import numpy as np
 import torch
 
+from leaf_tpu_torch.scripts import (_measure, e2e_gap, scan_ab,
+                                    serving_latency, streaming_latency)
+from leaf_tpu_torch.scripts.kernel_microbench import (kernel_timings,
+                                                      leaf_operands)
+from leaf_tpu_torch.scripts.step_profile import (measure_program, stacked,
+                                                 trainer)
+
 FLAGSHIP_CFG = {  # cfgs/speechcommands/efficientnet-b0-leaf-default.cfg
     "frontend": {"name": "leaf", "default_args": True},
     "audio_config": {"sample_rate": 16000},
@@ -226,11 +240,9 @@ PARITY_CFG = {**FLAGSHIP_CFG,
               "opt": {**TRAIN_CFG["opt"], "warmup_epochs": 1}}
 LOSS_TOL, UPDATE_TOL, STATS_TOL, FRONTEND_TOL = 1e-4, 3e-2, 1e-3, 1e-2
 TIMED_STEPS = 12
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
-F32_PEAK_FLOPS = 67e12
-TF32_PEAK_FLOPS = 494.7e12  # tensor cores
-BF16_PEAK_FLOPS = 989e12    # tensor cores
-HBM_BYTES_PER_S = 3.35e12
+# the 'off' step against the fused one: a ~40 ms difference on a step of
+# ~45 ms, which 5 steps after 2 resolve
+OFF_TIMED_STEPS = 5
 
 
 def _bf16(cfg: dict) -> dict:
@@ -267,20 +279,6 @@ FWD_BF16_HGMMAS = 52
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def _sass_counts(path) -> dict:
@@ -348,17 +346,6 @@ def phase_build():
             raise AssertionError(
                 f"the bf16 forward library holds {counts['HGMMA.BF16']} bf16 "
                 f"HGMMAs, not {FWD_BF16_HGMMAS}: its SASS changed")
-
-
-def leaf_operands(device, n_filters: int = PARITY_F):
-    """(bank, windows) of a Leaf of ``n_filters`` (the flagship's 40 by
-    default) at its mel init, on ``device``."""
-    from leaf_tpu_torch.frontend import Leaf
-    leaf = Leaf(n_filters=n_filters, device=device)
-    with torch.no_grad():
-        bank = leaf._complex_conv.emit_filters().contiguous()
-        windows = leaf._pooling.emit_windows()[0].contiguous()
-    return bank, windows
 
 
 def phase_parity(device):
@@ -694,26 +681,6 @@ def _no_launches() -> dict:
     return {name: 0 for name in _counts()}
 
 
-def _trainer(cfg, state, device, augment: bool, steps_per_epoch: int,
-             epochs: int, capturable: bool = False, pg=None):
-    """(TrainState, train step) for ``cfg`` from the weights ``state``;
-    the step's loss is the cfg's ``model.type`` (multiclass unless
-    named); with a process group ``pg`` the data-parallel step."""
-    from leaf_tpu_torch.data import leaf_device_augment
-    from leaf_tpu_torch.models import Classifier
-    from leaf_tpu_torch.training import (TrainState, make_train_step,
-                                         optimization_helper)
-    clf = Classifier(cfg, device=device)
-    clf.load_state_dict(state)
-    opt, sched, _, _ = optimization_helper(
-        cfg, clf.parameters(), num_tr_steps_per_epoch=steps_per_epoch,
-        num_epochs=epochs, capturable=capturable)
-    return (TrainState(clf, opt, sched),
-            make_train_step(cfg["model"].get("type", "multiclass"),
-                            augment_fn=leaf_device_augment if augment
-                            else None, process_group=pg))
-
-
 def _batch(rng, b: int, device):
     x = torch.from_numpy((rng.randn(b, 16000) * 0.1).astype(np.float32))
     y = torch.from_numpy(rng.randint(0, 35, b).astype(np.int64))
@@ -726,7 +693,7 @@ def phase_train(device, state, bf16: bool = False):
     from leaf_tpu_torch.training import make_eval_step
     sfx, tag = ("_bf16", "[train-bf16]") if bf16 else ("", "[train]")
     cfg = _bf16(TRAIN_CFG) if bf16 else TRAIN_CFG
-    st, step = _trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS)
+    st, step = trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS)
     x, y = _batch(np.random.RandomState(5), TRAIN_B, device)
     gen = torch.Generator(device=device).manual_seed(5)
     _zero_counts()
@@ -828,7 +795,7 @@ def phase_train_parity(device, state):
         x, y = _batch(rng, b, device)
         runs = []
         for cfg, dev in ((PARITY_CFG, device), (ref_cfg, ref_device)):
-            st, step = _trainer(cfg, state, dev, False, 2, 10)
+            st, step = trainer(cfg, state, dev, False, 2, 10)
             losses = [float(step(st, x.to(dev), y.to(dev))["loss"])
                       for _ in range(n_steps)]
             runs.append((st.model, losses))
@@ -848,8 +815,8 @@ def phase_trajectory(device, state):
     y = torch.from_numpy(labels.astype(np.int64)).to(device)
     curves = {}
     for tag, cfg in (("f32", PARITY_CFG), ("bf16", _bf16(PARITY_CFG))):
-        st, step = _trainer(cfg, state, device, False, TRAJ_WARMUP,
-                            TRAJ_STEPS // TRAJ_WARMUP)
+        st, step = trainer(cfg, state, device, False, TRAJ_WARMUP,
+                           TRAJ_STEPS // TRAJ_WARMUP)
         t0 = time.perf_counter()
         losses = [step(st, x[lo:lo + TRAJ_B], y[lo:lo + TRAJ_B])["loss"]
                   for lo in ((i % 4) * TRAJ_B for i in range(TRAJ_STEPS))]
@@ -871,280 +838,77 @@ def phase_trajectory(device, state):
         raise AssertionError("bf16 trajectory diverged from f32")
 
 
-def _is_device_work(event) -> bool:
-    """A kernel or copy on the card; not a user annotation (such as
-    ``Optimizer.step#Adam.step``), whose span covers kernels already
-    counted."""
-    from torch.autograd import DeviceType
-    return (event.device_type == DeviceType.CUDA
-            and not getattr(event, "is_user_annotation", False))
-
-
-def profile_requests(server, req, latency_ms: float, tag: str,
-                     n: int = 5) -> None:
-    """Device time per request by kernel (torch.profiler), and the share of
-    the unprofiled median latency the device sits idle."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            server(req)
-    kernels = sorted(((e.self_device_time_total / 1e3 / n, e.count // n, e.key)
-                      for e in prof.key_averages() if _is_device_work(e)),
-                     reverse=True)
-    busy = sum(k[0] for k in kernels)
-    if not busy:
-        log("[profile] no device time in the trace: not measured")
-        return
-    launches = sum(k[1] for k in kernels)
-    fused = sum(k[0] for k in kernels if "fused_fwd" in k[2])
-    log(f"[profile] {tag}: device busy {busy:.3f} ms per request "
-        f"({launches} kernels), idle {1 - busy / latency_ms:.1%} of the "
-        f"{latency_ms:.3f} ms median; fused frontend kernel {fused:.3f} ms "
-        f"({fused / busy:.1%} of device time)")
-    for ms, count, name in kernels[:5]:
-        log(f"[profile]   {ms:.3f} ms  x{count}  {name[:90]}")
-
-
-def _bound(flops: float, nbytes: float, tc_flops: float = 0.0,
-           tc_peak: float = TF32_PEAK_FLOPS) -> dict:
-    """Least time for ``flops`` f32 operations on the CUDA cores plus
-    ``tc_flops`` tensor-core operations at ``tc_peak`` (TF32 unless
-    named), or for ``nbytes``."""
-    flop_ms = (flops / F32_PEAK_FLOPS + tc_flops / tc_peak) * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(flop_ms, byte_ms),
-            "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
-
-
-def _kernel_timings(device, b: int, t: int, f: int, iters: int = 20,
-                    tag: str = "[timing]") -> dict:
-    """Each kernel (f32 and bf16), its plain version and the cuDNN
-    composition at (B, T, F) = (b, t, f), CUDA events over ``iters``
-    launches, with the kernel's bound at that shape (``_bound``)."""
-    import torch.nn.functional as F
-
-    from leaf_tpu_torch.ops.fused_frontend import (
-        fused_backward_bf16_cuda, fused_backward_cuda,
-        fused_backward_reference, fused_forward_bf16_cuda,
-        fused_forward_cuda, fused_forward_saving_bf16_cuda,
-        fused_forward_saving_cuda, fused_forward_saving_reference,
-        fused_reference, lowpass_frames_out)
-    bank, windows = leaf_operands(device, f)
-    rng = np.random.RandomState(2)
-    x = torch.from_numpy((rng.randn(b, t) * 0.1).astype(np.float32)).to(device)
-    n_frames = lowpass_frames_out(t, 160, 401, (200, 200))
-    d_out = torch.from_numpy(
-        rng.randn(b, n_frames, f).astype(np.float32)).to(device)
-    weight = bank.T[:, None, :].contiguous()
-    win = windows[:, None, :].contiguous()
-
-    def timed(fn):
-        return cuda_time_ms(fn, iters=iters, warmup=min(3, iters))
-
-    def library(w=weight, wn=win):  # cuDNN: conv1d → |·|² → grouped strided conv1d
-        out = F.conv1d(x[:, None, :], w, padding=200)
-        s = out[:, :f] ** 2 + out[:, f:] ** 2
-        return F.conv1d(s, wn, stride=160, padding=200, groups=f)
-
-    # S positions each frame's window covers inside [0, T): the work of dS
-    # and of d_windows depends on it
-    covered = sum(min(160 * fr + 201, t) - max(160 * fr - 200, 0)
-                  for fr in range(n_frames))
-    conv_flops = 2 * b * t * 2 * f * 401
-    fwd_flops = conv_flops + 3 * b * t * f + 2 * b * n_frames * f * 401
-    in_bytes = 4 * (b * t + 401 * 2 * f + f * 401)
-    out_bytes = 4 * b * n_frames * f
-    conv_bytes = 4 * b * 2 * f * t
-    results = {}
-
-    # each kernel's own bound: the conv correlation three times (3×TF32)
-    # on the tensor cores, the rest on the CUDA cores; the f32-FMA bound
-    # that any CUDA-core design has is logged beside it
-    fwd_bytes = in_bytes + out_bytes
-    ms = timed(lambda: fused_forward_cuda(x, bank, windows))
-    results["fwd"] = {"ms": ms,
-                      "plain_ms": timed(
-                          lambda: fused_reference(x, bank, windows)),
-                      "library_ms": timed(library),
-                      **_bound(fwd_flops - conv_flops, fwd_bytes,
-                               3 * conv_flops)}
-    results["fwd_save"] = {
-        "ms": timed(lambda: fused_forward_saving_cuda(x, bank, windows)),
-        "plain_ms": timed(
-            lambda: fused_forward_saving_reference(x, bank, windows)),
-        # the composition computes OUT (its conv1d output) on the way
-        "library_ms": results["fwd"]["library_ms"],
-        **_bound(fwd_flops - conv_flops, fwd_bytes + conv_bytes,
-                 3 * conv_flops)}
-    _, conv = fused_forward_saving_cuda(x, bank, windows)
-    wr = weight.clone().requires_grad_()
-    wnr = win.clone().requires_grad_()
-    lib_out = library(wr, wnr)
-    bwd_flops = conv_flops + 7 * b * t * f + 2 * 2 * b * f * covered
-    bwd_bytes = (in_bytes + conv_bytes + out_bytes
-                 + 4 * (401 * 2 * f + f * 401))
-    results["bwd"] = {
-        "ms": timed(lambda: fused_backward_cuda(x, conv, windows,
-                                                       d_out)),
-        "plain_ms": timed(
-            lambda: fused_backward_reference(x, conv, windows, d_out)),
-        "library_ms": timed(lambda: torch.autograd.grad(
-            lib_out, (wr, wnr), d_out.transpose(1, 2), retain_graph=True)),
-        **_bound(bwd_flops - conv_flops, bwd_bytes, 3 * conv_flops)}
-    del conv, lib_out
-
-    # bf16: x, the bank and OUT in bf16 (2 bytes), the windows, out, dY and
-    # d_windows in f32; the conv correlation once on the tensor cores at
-    # the bf16 rate. The library is the same cuDNN composition in bf16
-    # (conv1d → square → grouped strided conv1d), which rounds the conv
-    # output and S to bf16 where the kernels keep them in f32: not the
-    # same rounding, the same work.
-    xb, bankb = x.bfloat16(), bank.bfloat16()
-    weightb, winb = weight.bfloat16(), win.bfloat16()
-
-    def library_bf16(w=weightb, wn=winb):
-        out = F.conv1d(xb[:, None, :], w, padding=200)
-        s = out[:, :f] ** 2 + out[:, f:] ** 2
-        return F.conv1d(s, wn, stride=160, padding=200, groups=f)
-
-    in_b16 = 2 * (b * t + 401 * 2 * f) + 4 * f * 401
-    conv_b16 = 2 * b * 2 * f * t
-    fwd_b16 = in_b16 + out_bytes
-    results["fwd_bf16"] = {
-        "ms": timed(lambda: fused_forward_bf16_cuda(xb, bankb,
-                                                           windows)),
-        "plain_ms": timed(
-            lambda: fused_reference(xb, bankb, windows)),
-        "library_ms": timed(library_bf16),
-        **_bound(fwd_flops - conv_flops, fwd_b16, conv_flops,
-                 BF16_PEAK_FLOPS)}
-    results["fwd_save_bf16"] = {
-        "ms": timed(lambda: fused_forward_saving_bf16_cuda(
-            xb, bankb, windows)),
-        "plain_ms": timed(
-            lambda: fused_forward_saving_reference(xb, bankb, windows)),
-        "library_ms": results["fwd_bf16"]["library_ms"],
-        **_bound(fwd_flops - conv_flops, fwd_b16 + conv_b16, conv_flops,
-                 BF16_PEAK_FLOPS)}
-    _, conv = fused_forward_saving_bf16_cuda(xb, bankb, windows)
-    wr = weightb.clone().requires_grad_()
-    wnr = winb.clone().requires_grad_()
-    lib_out = library_bf16(wr, wnr)
-    d_out_b = d_out.bfloat16().transpose(1, 2)
-    results["bwd_bf16"] = {
-        "ms": timed(lambda: fused_backward_bf16_cuda(
-            xb, conv, windows, d_out)),
-        "plain_ms": timed(
-            lambda: fused_backward_reference(xb, conv, windows, d_out)),
-        "library_ms": timed(lambda: torch.autograd.grad(
-            lib_out, (wr, wnr), d_out_b, retain_graph=True)),
-        **_bound(bwd_flops - conv_flops,
-                 in_b16 + conv_b16 + out_bytes + 2 * 401 * 2 * f
-                 + 4 * f * 401, conv_flops, BF16_PEAK_FLOPS)}
-    del conv, lib_out, xb, x, d_out
-    torch.cuda.empty_cache()
-    for name, r in results.items():
-        dtype = "bf16" if name.endswith("_bf16") else "f32"
-        log(f"{tag} {name} kernel B={b} T={t} F={f} {dtype}: "
-            f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of the "
-            f"{r['bound_by']} bound {r['bound_ms']:.4f} ms); plain version "
-            f"{r['plain_ms']:.4f} ms; cuDNN composition (library) "
-            f"{r['library_ms']:.4f} ms ({iters} launches each)")
-    # each f32 kernel against both bounds: its conv correlation in f32 on
-    # the CUDA cores, or three times (3×TF32) on the tensor cores
-    fma_bounds = {"fwd": _bound(fwd_flops, fwd_bytes),
-                  "fwd_save": _bound(fwd_flops, fwd_bytes + conv_bytes),
-                  "bwd": _bound(bwd_flops, bwd_bytes)}
-    for name, r in results.items():
-        if name not in fma_bounds:
-            continue
-        ms, tc_ms = r["ms"], r["bound_ms"]
-        fma_ms = fma_bounds[name]["bound_ms"]
-        log(f"{tag} {name} bounds: f32 FMA {fma_ms:.4f} ms "
-            f"({fma_ms / ms:.1%} of the kernel's time), 3×TF32 tensor cores "
-            f"{tc_ms:.4f} ms ({tc_ms / ms:.1%})")
-    return results
-
-
 def phase_timing_audioset(device):
-    """The six kernels, their plain versions and the cuDNN composition at
-    the AudioSet ResNet-18 cfg's shape (B=128, T=80000, F=64)."""
-    _kernel_timings(device, AUDIOSET_B, AUDIOSET_T, AUDIOSET_F, iters=5,
-                    tag="[timing-audioset]")
+    """The six kernels and the cuDNN composition at the AudioSet ResNet-18
+    cfg's shape (B=128, T=80000, F=64); their plain versions there are
+    ``python -m leaf_tpu_torch.scripts.kernel_microbench --shape audioset
+    --plain``'s."""
+    kernel_timings(device, AUDIOSET_B, AUDIOSET_T, AUDIOSET_F, iters=5,
+                   log=log, tag="[timing-audioset] ")
 
 
 def phase_timings(device, servers):
-    results = _kernel_timings(device, 256, 16000, PARITY_F)
+    """The six kernels (kernel_microbench, with their plain versions) at
+    B=256, T=16000, and serving latency per bucket, f32 and bf16
+    (serving_latency, 20 requests and a profile of 5)."""
+    results = kernel_timings(device, 256, 16000, PARITY_F, iters=20,
+                             plain=True, log=log, tag="[timing] ")
     rng = np.random.RandomState(2)
     for dtype, server in servers.items():
         for bucket in BUCKETS:
             req = (rng.randn(bucket, 16000) * 0.1).astype(np.float32)
-            for _ in range(3):
-                server(req)
-            lat = []
-            for _ in range(20):
-                t0 = time.perf_counter()
-                server(req)  # returns host numpy: ends in a device sync
-                lat.append((time.perf_counter() - t0) * 1e3)
-            log(f"[timing] serving {dtype} bucket {bucket}: median "
-                f"{np.median(lat):.3f} ms, p90 {np.percentile(lat, 90):.3f} "
-                f"ms per request of {bucket} clips (host clock, 20 "
-                f"requests)")
-            profile_requests(server, req, float(np.median(lat)),
-                             f"{dtype} bucket {bucket}")
+            rec = serving_latency.measure_request(server, req, device,
+                                                  wall_reps=20,
+                                                  trace_execs=5)
+            log(serving_latency.describe(f"[timing] serving {dtype}", rec))
     return results
 
 
 def phase_train_timing(device, state):
-    """Train step time, fused vs 'off', and a profiler split of one step."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Train step time (step_profile.measure_program: the host clock of
+    calls ending in a synchronize, and a profile of one step): fused
+    (12 steps) and bf16 (12), and 'off' (5) against fused."""
     off_cfg = {**TRAIN_CFG, "frontend": {**TRAIN_CFG["frontend"],
                                          "use_fused_kernel": "off"}}
     x, y = _batch(np.random.RandomState(7), TRAIN_B, device)
     medians = {}
-    for tag, cfg in (("fused", TRAIN_CFG), ("off", off_cfg),
-                     ("bf16", _bf16(TRAIN_CFG))):
-        st, step = _trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS)
+    for tag, cfg, n in (("fused", TRAIN_CFG, TIMED_STEPS),
+                        ("off", off_cfg, OFF_TIMED_STEPS),
+                        ("bf16", _bf16(TRAIN_CFG), TIMED_STEPS)):
+        st, step = trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS)
         gen = torch.Generator(device=device).manual_seed(8)
-        for _ in range(3):
-            step(st, x, y, gen)
-        times = []
-        for _ in range(TIMED_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(st, x, y, gen)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        medians[tag] = float(np.median(times))
+        m = measure_program(lambda: step(st, x, y, gen), device, n,
+                            warmup=3 if n == TIMED_STEPS else 2,
+                            profile=tag != "off")
+        medians[tag] = m["wall_ms"]
         log(f"[timing] train step B={TRAIN_B} {tag}: median "
-            f"{medians[tag]:.3f} ms/step ({TRAIN_B / medians[tag] * 1e3:.1f} "
-            f"clips/s), min {min(times):.3f}, max {max(times):.3f} "
-            f"({TIMED_STEPS} steps after 3 warm-up, host clock, TF32 off)")
-        if tag == "off":
-            continue
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step(st, x, y, gen)
-            torch.cuda.synchronize()
-        kernels = [(e.self_device_time_total / 1e3, e.key)
-                   for e in prof.key_averages() if _is_device_work(e)]
-        busy = sum(k[0] for k in kernels)
-        if not busy:
-            log("[profile] train step: no device time in the trace: not "
-                "measured")
-            continue
-        front = sum(ms for ms, k in kernels
-                    if "fused_fwd" in k or "fused_bwd" in k)
-        log(f"[profile] train step ({tag}): device busy {busy:.3f} ms of the "
-            f"{medians[tag]:.3f} ms median (idle {1 - busy / medians[tag]:.1%}); "
-            f"frontend kernels {front:.3f} ms ({front / busy:.1%} of busy), "
-            f"everything else (backbone, optimizer, PCEN, augment, loss) "
-            f"{busy - front:.3f} ms")
-        for ms, name in sorted(kernels, reverse=True)[:8]:
-            log(f"[profile]   {ms:.3f} ms  {name[:90]}")
+            f"{m['wall_ms']:.3f} ms/step ({TRAIN_B / m['wall_ms'] * 1e3:.1f} "
+            f"clips/s), min {m['wall_min_ms']:.3f}, max "
+            f"{m['wall_max_ms']:.3f} ({n} steps after warm-up, host clock, "
+            f"TF32 off)")
+        _log_profile(f"train step ({tag})", m["profile"])
+        del st, step
     return medians
+
+
+def _log_profile(tag: str, prof, top: int = 8) -> None:
+    """A step's profile (``measure_program``'s): busy, idle, the frontend
+    kernels' share and the largest kernels."""
+    if prof is None:
+        return
+    if prof.busy_ms is None:
+        log(f"[profile] {tag}: no device time in the trace: not measured")
+        return
+    front = prof.ms("fused_fwd", "fused_bwd")
+    log(f"[profile] {tag}: device busy {prof.busy_ms:.3f} ms of the "
+        f"{prof.host_ms:.3f} ms median (idle {prof.idle:.1%}) in "
+        f"{prof.launches:.0f} kernels; frontend kernels {front:.3f} ms "
+        f"({front / prof.busy_ms:.1%} of busy), everything else (backbone, "
+        f"optimizer, PCEN, augment, loss) {prof.busy_ms - front:.3f} ms; "
+        "by category: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                    prof.categories.items() if v))
+    for name, count, ms in prof.rows[:top]:
+        log(f"[profile]   {ms:.3f} ms  x{count:g}  {name[:90]}")
 
 
 # ---------------------------------------------------------------- [stream]
@@ -1174,23 +938,6 @@ KERNEL_SYMBOLS = {"fwd_save": "fused_fwd_tf32x3_kernel<true>",
                   "bwd_bf16": "fused_bwd_bf16_kernel"}
 
 
-def _stream(streamer, wave, chunk: int, sync_times=None):
-    """Stream ``wave`` (B, T) in chunks, the remainder to ``flush``;
-    returns the frames (numpy). With ``sync_times`` (a list) each
-    process() call's host-clock ms, synchronised, is appended."""
-    n = wave.shape[1] // chunk
-    outs = []
-    for i in range(n):
-        t0 = time.perf_counter()
-        outs.append(streamer.process(wave[:, i * chunk:(i + 1) * chunk]))
-        if sync_times is not None:
-            torch.cuda.synchronize()
-            sync_times.append((time.perf_counter() - t0) * 1e3)
-    rem = wave[:, n * chunk:]
-    outs.append(streamer.flush(rem if rem.shape[1] else None))
-    return torch.cat(outs, dim=1).float().cpu().numpy()
-
-
 def phase_stream(device):
     """The streaming frontend (seeded flagship Leaf, 40 filters): 64
     streams of 1 s and 8 of 3 s + 480 samples (a flush remainder) in
@@ -1207,12 +954,14 @@ def phase_stream(device):
     for name, b, t in (("1 s", STREAM_N, 16000), ("3 s", 8, STREAM_LONG)):
         wave = (rng.randn(b, t) * 0.1).astype(np.float32)
         x = torch.from_numpy(wave).to(device)
-        got = _stream(LeafStreamer(leaf, STREAM_CHUNK), wave, STREAM_CHUNK,
+        got = streaming_latency.stream(LeafStreamer(leaf, STREAM_CHUNK),
+                                       wave, STREAM_CHUNK,
                       latencies if name == "1 s" else None)
         with torch.no_grad():
             ref, fused = off(x).cpu().numpy(), leaf(x).cpu().numpy()
             ref_b = off_b(x).cpu().numpy()
-        got_b = _stream(LeafStreamer(off_b, STREAM_CHUNK), wave,
+        got_b = streaming_latency.stream(LeafStreamer(off_b, STREAM_CHUNK),
+                                         wave,
                         STREAM_CHUNK)
         err = np.abs(got - ref)
         ratio = float((err / (STREAM_TOL["atol"]
@@ -1239,15 +988,16 @@ def phase_stream(device):
     return leaf
 
 
-def _latency(server, req, n: int = 20) -> float:
-    for _ in range(3):
-        server(req)
-    lat = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        server(req)  # returns host numpy: ends in a device sync
-        lat.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(lat))
+def _serve_in_turns(tag: str, servers: dict, rng, device) -> None:
+    """Latency of ``servers`` (artifact and live) at each bucket in turns
+    (serving_latency.in_turns: 20 requests per turn, a b b a; a profile
+    of 5 requests each)."""
+    for bucket in BUCKETS:
+        req = (rng.randn(bucket, 16000) * 0.1).astype(np.float32)
+        recs = serving_latency.in_turns(servers, req, device, wall_reps=20,
+                                        trace_execs=5)
+        for name, rec in recs.items():
+            log(serving_latency.describe(f"{tag} {name}", rec))
 
 
 def phase_export(device, state, leaf, tmp):
@@ -1299,28 +1049,17 @@ def phase_export(device, state, leaf, tmp):
                                  f"bucket forward ({forwards}), {counts}")
         if worst > ARTIFACT_TOL:
             raise AssertionError(f"{dtype} artifact disagrees with live")
-        for bucket in BUCKETS:
-            req = (rng.randn(bucket, 16000) * 0.1).astype(np.float32)
-            lat = {}
-            for name, server in (("artifact", art), ("live", live),
-                                 ("live ", live), ("artifact ", art)):
-                lat.setdefault(name.strip(), []).append(_latency(server, req))
-            log(f"[export] {dtype} bucket {bucket}: median latency artifact "
-                f"{' / '.join(f'{v:.3f}' for v in lat['artifact'])} ms, live "
-                f"{' / '.join(f'{v:.3f}' for v in lat['live'])} ms (host "
-                f"clock, 20 requests each, artifact-live-live-artifact)")
-            for name, server in (("artifact", art), ("live", live)):
-                profile_requests(server, req, float(np.mean(lat[name])),
-                                 f"{name} {dtype} bucket {bucket}")
+        _serve_in_turns(f"[export] {dtype}", {"artifact": art, "live": live},
+                        rng, device)
         del art, live
     out = os.path.join(tmp, "serving_stream")
     save_exported_streaming(out, leaf, STREAM_CHUNK, STREAM_N)
     served = StreamingServingModel.load(out, device=device)
     wave = (rng.randn(STREAM_N, 16000) * 0.1).astype(np.float32)
     lat_art, lat_live = [], []
-    a = _stream(served, wave, STREAM_CHUNK, lat_art)
-    b = _stream(LeafStreamer(leaf, STREAM_CHUNK), wave, STREAM_CHUNK,
-                lat_live)
+    a = streaming_latency.stream(served, wave, STREAM_CHUNK, lat_art)
+    b = streaming_latency.stream(LeafStreamer(leaf, STREAM_CHUNK), wave,
+                                 STREAM_CHUNK, lat_live)
     err = float(np.abs(a - b).max())
     ok = np.allclose(a, b, **SERVED_STREAM_TOL) and a.shape == b.shape
     log(f"[export] streaming artifact ({STREAM_N} streams, chunk "
@@ -1333,38 +1072,14 @@ def phase_export(device, state, leaf, tmp):
     return launches
 
 
-def _profiled(fn) -> tuple:
-    """(device-busy ms, kernel launches by KERNEL_SYMBOLS name, the fused
-    frontend kernels' device ms) of one ``fn()`` under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if _is_device_work(e)]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    seen = {name: sum(e.count for e in events if sym in e.key)
-            for name, sym in KERNEL_SYMBOLS.items()}
-    front = sum(e.self_device_time_total for e in events
-                if "fused_fwd" in e.key or "fused_bwd" in e.key) / 1e3
-    return busy, seen, front
-
-
-def _stacked(rng, k: int, device):
-    xs = torch.from_numpy((rng.randn(k, TRAIN_B, 16000) * 0.1)
-                          .astype(np.float32)).to(device)
-    ys = torch.from_numpy(rng.randint(0, 35, (k, TRAIN_B))).to(device)
-    return xs, ys
-
-
 def _twin(cfg, st, gen, device):
     """A second train state with copies of ``st``'s weights, buffers,
     optimizer and schedule, and a generator at ``gen``'s state."""
     import copy
 
     from leaf_tpu_torch.training import TrainState
-    twin, step = _trainer(cfg, st.model.state_dict(), device, True,
-                          STEPS_PER_EPOCH, EPOCHS, capturable=True)
+    twin, step = trainer(cfg, st.model.state_dict(), device, True,
+                         STEPS_PER_EPOCH, EPOCHS, capturable=True)
     twin.optimizer.load_state_dict(copy.deepcopy(st.optimizer.state_dict()))
     twin.scheduler.load_state_dict(st.scheduler.state_dict())
     twin.step = st.step
@@ -1377,7 +1092,8 @@ def phase_multistep(device, state):
     """K train steps per call as one CUDA graph, B=256, f32 and bf16, with
     augment, dropout and drop-connect on: a replay against K eager steps
     from the same state and generator state, its kernels in the profiler,
-    and host ms per step at K = 1 (eager), 4 and 8 (graph)."""
+    and host ms per step at K = 1 (eager) and 4 (graph; K = 8 and 16:
+    ``python -m leaf_tpu_torch.scripts.scan_ab``)."""
     results = {}
     for dtype, cfg, sfx in (("f32", TRAIN_CFG, ""),
                             ("bf16", _bf16(TRAIN_CFG), "_bf16")):
@@ -1385,7 +1101,9 @@ def phase_multistep(device, state):
         results[dtype] = {"per_replay": _multistep_check(device, state, cfg,
                                                          sfx, tag)}
         torch.cuda.empty_cache()
-        results[dtype]["timing"] = _multistep_timing(device, state, cfg, tag)
+        results[dtype]["timing"] = scan_ab.multistep_timing(
+            cfg, state, device, ks=(1, MULTI_K), calls=TIMED_STEPS,
+            batch=TRAIN_B, log=log, tag=tag)
     return results
 
 
@@ -1400,11 +1118,11 @@ def _multistep_check(device, state, cfg, sfx: str, tag: str,
     from leaf_tpu_torch.data import leaf_device_augment
     from leaf_tpu_torch.training import make_train_multistep
     rng = np.random.RandomState(16)
-    st, _ = _trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS,
-                     capturable=True)
+    st, _ = trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS,
+                    capturable=True)
     gen = torch.Generator(device=device).manual_seed(16)
     multi = make_train_multistep(k, augment_fn=leaf_device_augment)
-    groups = [_stacked(rng, k, device) for _ in range(3)]
+    groups = [stacked(rng, k, TRAIN_B, 16000, device) for _ in range(3)]
     t0 = time.perf_counter()
     multi(st, *groups[0], gen)  # K eager steps, then the capture
     torch.cuda.synchronize()
@@ -1451,74 +1169,14 @@ def _multistep_check(device, state, cfg, sfx: str, tag: str,
         raise AssertionError(f"{tag}: the graph disagrees with eager "
                              "steps")
     del twin, ref
-    busy, seen, _ = _profiled(lambda: multi(st, *groups[2], gen))
+    prof = _measure.device_profile(lambda: multi(st, *groups[2], gen))
+    seen = {name: prof.count(sym) for name, sym in KERNEL_SYMBOLS.items()}
     log(f"{tag}: profiler, one replay: {seen} kernel launches, device "
-        f"busy {busy:.3f} ms")
+        f"busy {prof.busy_ms:.3f} ms")
     if {name: v for name, v in seen.items() if v} != want:
         raise AssertionError(f"{tag}: the profiler saw {seen}, want "
                              f"{want} per replay")
     return multi.per_replay
-
-
-def _multistep_timing(device, state, cfg, tag: str, ks=(1, 4, 8),
-                      pg=None) -> dict:
-    """Host-clock ms per step, device-busy ms per step, the idle share and
-    the fused frontend kernels' share of the device time at K = 1 (eager
-    make_train_step) and the other ``ks`` (graph); with a process group
-    ``pg`` of the data-parallel step, and its collectives per step (NCCL
-    kernels and their device ms, the host ms of the c10d calls)."""
-    from leaf_tpu_torch.data import leaf_device_augment
-    from leaf_tpu_torch.training import make_train_multistep
-    out = {}
-    for k in ks:
-        st, step = _trainer(cfg, state, device, True, STEPS_PER_EPOCH,
-                            EPOCHS, capturable=k > 1, pg=pg)
-        gen = torch.Generator(device=device).manual_seed(17)
-        xs, ys = _stacked(np.random.RandomState(17), k, device)
-        if k == 1:
-            def call(st=st, step=step, gen=gen, xs=xs, ys=ys):
-                step(st, xs[0], ys[0], gen)
-            pool = 0
-        else:
-            multi = make_train_multistep(k, augment_fn=leaf_device_augment,
-                                         process_group=pg)
-
-            def call(st=st, multi=multi, gen=gen, xs=xs, ys=ys):
-                multi(st, xs, ys, gen)
-        for _ in range(3):
-            call()
-        pool = 0 if k == 1 else multi.pool_bytes
-        times = []
-        for _ in range(TIMED_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3 / k)
-        busy, _, front = _profiled(call)
-        med = float(np.median(times))
-        out[k] = {"ms": med, "busy_ms": busy / k, "pool_bytes": pool,
-                  "frontend_ms": front / k}
-        if pg is not None:
-            calls, n, dev_ms, host_ms = _collectives(call)
-            out[k].update(collectives=calls / k, nccl_kernels=n / k,
-                          collective_ms=dev_ms / k,
-                          collective_host_ms=host_ms / k)
-            log(f"{tag} K={k}: collectives per step: {calls / k:g} c10d "
-                f"calls ({host_ms / k:.3f} host ms; a replay makes none), "
-                f"{n / k:g} NCCL kernels ({dev_ms / k:.3f} device ms)")
-        log(f"{tag} timing K={k} ({'eager' if k == 1 else 'graph'}): "
-            f"median {med:.3f} ms/step ({TRAIN_B / med * 1e3:.1f} clips/s), "
-            f"min {min(times):.3f}, max {max(times):.3f} ({TIMED_STEPS} "
-            f"calls after 3, host clock); device busy {busy / k:.3f} "
-            f"ms/step, idle {1 - busy / k / med:.1%}; frontend kernels "
-            f"{front / k:.3f} ms/step ({front / busy:.1%} of busy); graph "
-            f"pool {pool / 2**30:.2f} GiB")
-        del st, step, call
-        if k > 1:
-            del multi
-        torch.cuda.empty_cache()
-    return out
 
 
 # ------------------------------------------------------------------- [dp]
@@ -1582,25 +1240,6 @@ _LAUNCH_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                 "MASTER_PORT")
 
 
-def _collectives(fn) -> tuple:
-    """(c10d collective calls, NCCL kernels, their device ms, host ms of
-    the c10d calls) of one ``fn()`` under torch.profiler. A one-rank
-    NCCL all_reduce in place launches no kernel: at world 1 the calls
-    cost host time only, and a graph replay makes none."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    nccl = [e for e in events if _is_device_work(e)
-            and "nccl" in e.key.lower()]
-    host = [e for e in events if e.key.startswith("c10d::")]
-    return (sum(e.count for e in host), sum(e.count for e in nccl),
-            sum(e.self_device_time_total for e in nccl) / 1e3,
-            sum(e.cpu_time_total for e in host) / 1e3)
-
-
 def phase_dp(device, state, multistep: dict) -> dict:
     """World 1 on NCCL (f32 and bf16: bit-equality, the K=4 graph, timings
     beside ``multistep``'s plain-step timings) and world 2 (gloo on one
@@ -1655,8 +1294,8 @@ def _dp_world1_bit_equal(device, state, cfg, sfx: str, tag: str,
     runs = {}
     with _deterministic():
         for kind in ("plain", "gspmd", "shard_map"):
-            st, step = _trainer(cfg, state, device, False, 2, 10,
-                                pg=pg if kind == "gspmd" else None)
+            st, step = trainer(cfg, state, device, False, 2, 10,
+                               pg=pg if kind == "gspmd" else None)
             if kind == "shard_map":
                 step = make_shard_map_train_step(make_mesh(1))
             _zero_counts()
@@ -1693,10 +1332,10 @@ def _dp_graph_check(device, state, cfg, sfx: str, tag: str, pg) -> None:
     from leaf_tpu_torch.data import leaf_device_augment
     from leaf_tpu_torch.training import make_train_multistep, make_train_step
     rng = np.random.RandomState(21)
-    groups = [_stacked(rng, DP_K, device) for _ in range(3)]
+    groups = [stacked(rng, DP_K, TRAIN_B, 16000, device) for _ in range(3)]
     with _deterministic():
-        st, _ = _trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS,
-                         capturable=True)
+        st, _ = trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS,
+                        capturable=True)
         gen = torch.Generator(device=device).manual_seed(21)
         multi = make_train_multistep(DP_K, augment_fn=leaf_device_augment,
                                      process_group=pg)
@@ -1718,7 +1357,8 @@ def _dp_graph_check(device, state, cfg, sfx: str, tag: str, pg) -> None:
           and torch.equal(got["loss"], ref_loss)
           and int(got["correct"]) == sum(int(m["correct"]) for m in ref)
           and gen.get_state().equal(tgen.get_state()))
-    calls, n, dev_ms, _ = _collectives(lambda: multi(st, *groups[2], gen))
+    calls, n, dev_ms, _ = _measure.collectives(
+        lambda: multi(st, *groups[2], gen))
     log(f"{tag}: K={DP_K} graph of the data-parallel step vs {DP_K} eager "
         f"data-parallel steps (deterministic algorithms): loss "
         f"{float(got['loss']):.6f} vs {float(ref_loss):.6f}; "
@@ -1736,8 +1376,10 @@ def _dp_timing(device, state, cfg, tag: str, pg, plain: dict) -> dict:
     (``plain``: [multistep]'s timing of this run, by K)."""
     out = {}
     for k in (1, DP_K):
-        out[k] = _multistep_timing(device, state, cfg, f"{tag} dp", (k,),
-                                   pg=pg)[k]
+        out[k] = scan_ab.multistep_timing(cfg, state, device, (k,),
+                                          calls=TIMED_STEPS, batch=TRAIN_B,
+                                          pg=pg, log=log,
+                                          tag=f"{tag} dp")[k]
         torch.cuda.empty_cache()
         p, d = plain[k], out[k]
         log(f"{tag} K={k} ({'eager' if k == 1 else 'graph'}): data-parallel "
@@ -1772,8 +1414,8 @@ def _dp_rank(r: int, world: int, store: str, tmp: str, backend: str,
         out = {}
         for kind, rows in (("dp", half), ("per_replica", half),
                            ("shard_same", slice(0, TRAIN_B))):
-            st, step = _trainer(DP_CFG, blob["state"], device, False, 2, 10,
-                                pg=dist.group.WORLD if kind == "dp" else None)
+            st, step = trainer(DP_CFG, blob["state"], device, False, 2, 10,
+                               pg=dist.group.WORLD if kind == "dp" else None)
             if kind != "dp":
                 step = make_shard_map_train_step(make_mesh(world))
             _zero_counts()
@@ -1844,7 +1486,7 @@ def _dp_world2(device, state, backend: str) -> None:
     refs = {}
     for name, rows in (("joined", slice(0, 2 * TRAIN_B)),
                        ("first half", slice(0, TRAIN_B))):
-        st, step = _trainer(DP_CFG, state, device, False, 2, 10)
+        st, step = trainer(DP_CFG, state, device, False, 2, 10)
         losses = [float(step(st, x[rows].to(device), y[rows].to(device))
                          ["loss"]) for _ in range(DP2_STEPS)]
         refs[name] = (st.model.cpu(), losses)
@@ -2057,19 +1699,8 @@ def phase_zoo_serving(device, tmp):
         f"{worst:.3e} (tol {ARTIFACT_TOL:g})")
     if counts != {**_no_launches(), "fwd": forwards} or worst > ARTIFACT_TOL:
         raise AssertionError("[zoo] resnet-18 artifact disagrees")
-    for bucket in BUCKETS:
-        req = (rng.randn(bucket, 16000) * 0.1).astype(np.float32)
-        lat = {}
-        for name, server in (("artifact", art), ("live", live),
-                             ("live ", live), ("artifact ", art)):
-            lat.setdefault(name.strip(), []).append(_latency(server, req))
-        log(f"[zoo] resnet-18 f32 bucket {bucket}: median latency artifact "
-            f"{' / '.join(f'{v:.3f}' for v in lat['artifact'])} ms, live "
-            f"{' / '.join(f'{v:.3f}' for v in lat['live'])} ms (host clock, "
-            f"20 requests each, artifact-live-live-artifact)")
-        for name, server in (("artifact", art), ("live", live)):
-            profile_requests(server, req, float(np.mean(lat[name])),
-                             f"resnet-18 {name} f32 bucket {bucket}")
+    _serve_in_turns("[zoo] resnet-18 f32", {"artifact": art, "live": live},
+                    rng, device)
     return state
 
 
@@ -2083,8 +1714,8 @@ def phase_zoo_train(device, state):
     x, y = _batch(np.random.RandomState(22), TRAIN_B, device)
     for dtype, run_cfg, sfx in (("f32", cfg, ""), ("bf16", _bf16(cfg),
                                                    "_bf16")):
-        st, step = _trainer(run_cfg, state, device, True, STEPS_PER_EPOCH,
-                            EPOCHS)
+        st, step = trainer(run_cfg, state, device, True, STEPS_PER_EPOCH,
+                           EPOCHS)
         gen = torch.Generator(device=device).manual_seed(22)
         _zero_counts()
         losses = [float(step(st, x, y, gen)["loss"])
@@ -2106,33 +1737,15 @@ def phase_zoo_train(device, state):
     torch.cuda.empty_cache()
     _multistep_check(device, state, cfg, "", "[zoo] resnet-18 multistep f32")
     torch.cuda.empty_cache()
-    timing = {dtype: _multistep_timing(device, state, run_cfg,
-                                       f"[zoo] resnet-18 {dtype}", ks=(1, 4))
-              for dtype, run_cfg in (("f32", cfg), ("bf16", _bf16(cfg)))}
-    _profile_step("[zoo] resnet-18 f32 eager step", cfg, state, x, y)
+    timing = {dtype: scan_ab.multistep_timing(
+        run_cfg, state, device, ks=(1, 4), calls=TIMED_STEPS, batch=TRAIN_B,
+        log=log, tag=f"[zoo] resnet-18 {dtype}")
+        for dtype, run_cfg in (("f32", cfg), ("bf16", _bf16(cfg)))}
+    st, step = trainer(cfg, state, device, True, STEPS_PER_EPOCH, EPOCHS)
+    gen = torch.Generator(device=device).manual_seed(8)
+    _log_profile("[zoo] resnet-18 f32 eager step", measure_program(
+        lambda: step(st, x, y, gen), device, 1)["profile"])
     return timing
-
-
-def _profile_step(tag: str, cfg, state, x, y) -> None:
-    """The kernels that take the most device time in one eager train step
-    (augment on), by torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    st, step = _trainer(cfg, state, x.device, True, STEPS_PER_EPOCH, EPOCHS)
-    gen = torch.Generator(device=x.device).manual_seed(8)
-    for _ in range(3):
-        step(st, x, y, gen)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(st, x, y, gen)
-        torch.cuda.synchronize()
-    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                      for e in prof.key_averages() if _is_device_work(e)),
-                     reverse=True)
-    log(f"{tag}: device busy {sum(k[0] for k in kernels):.3f} ms in "
-        f"{sum(k[1] for k in kernels)} kernels; the largest:")
-    for ms, count, name in kernels[:8]:
-        log(f"[profile]   {ms:.3f} ms  x{count}  {name[:90]}")
 
 
 def _fused_vs_off(tag: str, cfg, state, x, y, steps: int,
@@ -2145,8 +1758,8 @@ def _fused_vs_off(tag: str, cfg, state, x, y, steps: int,
     one's norm), all of the same weights."""
     runs = []
     for run_cfg in (cfg, _off(cfg)):
-        st, step = _trainer(run_cfg, state, x.device, False, steps_per_epoch,
-                            epochs)
+        st, step = trainer(run_cfg, state, x.device, False, steps_per_epoch,
+                           epochs)
         losses = [float(step(st, x, y)["loss"])]
         first = _grads_and_stats(st.model)
         losses += [float(step(st, x, y)["loss"]) for _ in range(steps - 1)]
@@ -2222,8 +1835,8 @@ def phase_zoo_audioset(device):
     y[np.arange(AUDIOSET_B)[:, None],
       rng.randint(0, n_classes, (AUDIOSET_B, 2))] = 1.0
     y = torch.from_numpy(y).to(device)
-    st, step = _trainer(cfg, state, device, True, AUDIOSET_STEPS_PER_EPOCH,
-                        AUDIOSET_EPOCHS)
+    st, step = trainer(cfg, state, device, True, AUDIOSET_STEPS_PER_EPOCH,
+                       AUDIOSET_EPOCHS)
     gen = torch.Generator(device=device).manual_seed(23)
     _zero_counts()
     t0 = time.perf_counter()
@@ -2465,41 +2078,6 @@ def _epoch_lines(out: str):
             for e, loss, acc, _, rate, k in _EPOCH_LINE.findall(out)]
 
 
-def _time_loader(cfg: dict, in_memory: bool, workers: int,
-                 epochs: int = 3) -> list:
-    """clips/s of the train DataLoader alone (no model), per epoch."""
-    from leaf_tpu_torch.data import (RawWaveformDataset,
-                                     leaf_host_crop_transforms,
-                                     setup_dataloaders)
-    ds = RawWaveformDataset(cfg["data"]["train"], cfg["data"]["labels"],
-                            cfg["audio_config"], mode="multiclass",
-                            transform=leaf_host_crop_transforms(True, 16000),
-                            in_memory=in_memory, wire_dtype="int16")
-    loader, _ = setup_dataloaders(ds, None, TRAIN_B, target_len=16000,
-                                  num_workers=workers, need_val=False)
-    rates = []
-    for epoch in range(epochs):
-        loader.set_epoch(epoch)
-        t0 = time.perf_counter()
-        n = sum(x.shape[0] for x, _ in loader)
-        rates.append(n / (time.perf_counter() - t0))
-    return rates
-
-
-def _time_decode(cfg: dict, n: int = 256) -> float:
-    """µs per clip of ``load_audio`` alone, one thread, over n train files
-    (read once before, so the OS cache holds them)."""
-    from leaf_tpu_torch.data.audio import load_audio
-    from leaf_tpu_torch.data.dataset import read_manifest
-    files = read_manifest(cfg["data"]["train"])["files"][:n]
-    for f in files:
-        load_audio(f, 16000, 1.0, dtype="int16")
-    t0 = time.perf_counter()
-    for f in files:
-        load_audio(f, 16000, 1.0, dtype="int16")
-    return (time.perf_counter() - t0) / n * 1e6
-
-
 def _check_exported(exp: str, out: str) -> None:
     """The export CLI's artifacts (``out``) against the live model of the
     checkpoint it exported (the best of ``exp``), on the card."""
@@ -2522,6 +2100,11 @@ def _check_exported(exp: str, out: str) -> None:
         f"{rel:.3e} (tol {ARTIFACT_TOL:g}); streaming roles {roles}")
     if rel > ARTIFACT_TOL or roles != ["first", "flush_0", "steady"]:
         raise AssertionError("export_serving's artifact disagrees")
+
+
+def _train_files(cfg: dict, n: int) -> list:
+    from leaf_tpu_torch.data.dataset import read_manifest
+    return read_manifest(cfg["data"]["train"])["files"][:n]
 
 
 def phase_cli(tmp: str) -> dict:
@@ -2709,15 +2292,19 @@ def phase_cli(tmp: str) -> dict:
         raise AssertionError(f"evaluate of the resnet-18 run: {rows}")
     log(f"[cli] evaluate (resnet-18): {rows[1]}")
 
-    loader = {(mem, w): _time_loader(cfg, mem, w)
-              for mem, w in ((False, 1), (False, 4), (True, 4))}
+    # the loader timers are e2e_gap's (python -m leaf_tpu_torch.scripts
+    # .e2e_gap measures the float32 wire, the copies and the step too)
+    loader = {(mem, w): e2e_gap.loader_rates(e2e_gap.build_loader(
+        cfg["data"]["train"], cfg["data"]["labels"], TRAIN_B, "int16", mem,
+        w, cfg["audio_config"]), 3)
+        for mem, w in ((False, 1), (False, 4), (True, 4))}
     for (mem, w), rates in loader.items():
         log(f"[cli] train DataLoader alone (num_workers {w}, in_memory "
             f"{mem}, int16 wire, B={TRAIN_B}): " + ", ".join(
                 f"epoch {i} {r:.0f} clips/s" for i, r in enumerate(rates))
             + f"; the step needs ~{STEP_DEVICE_CLIPS_PER_S} clips/s")
     log(f"[cli] load_audio alone, one thread, files in {tmp}: "
-        f"{_time_decode(cfg):.1f} us per clip")
+        f"{e2e_gap.decode_us(_train_files(cfg, 256)):.1f} us per clip")
     log("[cli] wall times: " + ", ".join(f"{k} {v:.1f} s"
                                          for k, v in walls.items()))
     return {"loop": [e[3] for e in epochs], "loader": loader, "walls": walls}
@@ -2863,28 +2450,6 @@ def _train_packed(cfg_file: str, expdir: str, want_features: dict,
     return counts
 
 
-def _time_packed_loader(tmp: str, packed_dir: str, workers: int,
-                        epochs: int = 3) -> list:
-    """clips/s of the packed train DataLoader alone (no model), per epoch."""
-    from leaf_tpu_torch.data import (PackedDataset, leaf_host_crop_transforms,
-                                     setup_dataloaders)
-    ds = PackedDataset(os.path.join(packed_dir, "train_packed.csv"),
-                       os.path.join(tmp, "lbl_map.json"),
-                       {"sample_rate": 16000, "min_duration": 1},
-                       mode="multiclass",
-                       transform=leaf_host_crop_transforms(True, 16000))
-    loader, _ = setup_dataloaders(ds, None, PACKED_SHARDS, target_len=16000,
-                                  num_workers=workers, need_val=False,
-                                  packed=True)
-    rates = []
-    for epoch in range(epochs):
-        loader.set_epoch(epoch)
-        t0 = time.perf_counter()
-        n = sum(x.shape[0] for x, _ in loader)
-        rates.append(n / (time.perf_counter() - t0))
-    return rates
-
-
 def phase_packed(tmp: str, cli: dict) -> None:
     """[cli]'s tone task as packed shards: pack it with the CLI, check the
     shards, and train the flagship on them from a pretrained frontend (the
@@ -2918,7 +2483,16 @@ def phase_packed(tmp: str, cli: dict) -> None:
                   os.path.join(tmp, "exp_packed_npz"), moved,
                   "train --use_packed_dataset, frontend.pretrained = npz")
 
-    rates = _time_packed_loader(tmp, packed_dir, workers=4)
+    from leaf_tpu_torch.data import (PackedDataset, leaf_host_crop_transforms,
+                                     setup_dataloaders)
+    ds = PackedDataset(os.path.join(packed_dir, "train_packed.csv"),
+                       os.path.join(tmp, "lbl_map.json"),
+                       {"sample_rate": 16000, "min_duration": 1},
+                       mode="multiclass",
+                       transform=leaf_host_crop_transforms(True, 16000))
+    loader, _ = setup_dataloaders(ds, None, PACKED_SHARDS, target_len=16000,
+                                  num_workers=4, need_val=False, packed=True)
+    rates = e2e_gap.loader_rates(loader, 3)
     csv_rates = cli["loader"][(False, 4)]
     log(f"[packed] train DataLoader alone (num_workers 4, B={PACKED_SHARDS} "
         f"shards x {PACKED_RECORDS}, float32 wire): " + ", ".join(
@@ -3005,15 +2579,15 @@ def converge_finish(runs: list, deadline: float) -> None:
             _stop(proc)
 
 
+def _fields(r: dict) -> dict:
+    """A kernel's timing fields of the ``kernels`` line."""
+    return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    try:
-        import leaf_tpu_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: the leaf_tpu_torch package is not importable "
-              f"({e}); run from the repository root", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -3076,43 +2650,43 @@ def main() -> int:
             log(f"[converge] phase took {time.perf_counter() - start:.1f} s "
                 f"(beside [dp-cli])")
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
+    smi = _measure.smi_line()
+    if smi is None:
+        raise AssertionError("nvidia-smi did not report the card")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    log(smi[0])
+    log(smi)
     src = "leaf_tpu_torch/ops/csrc/"
     log(json.dumps({"kernels": [
         {"name": "fused_gabor_sqmod_lowpass_fwd", "route": "cuda",
          "source": src + "fused_frontend.cu",
          "replaces": "leaf_tpu/ops/fused_frontend.py:325",
          "launches": launches, "max_abs_err": max_abs_err,
-         **timing["fwd"]},
+         **_fields(timing["fwd"])},
         {"name": "fused_gabor_sqmod_lowpass_fwd_saving", "route": "cuda",
          "source": src + "fused_frontend.cu",
          "replaces": "leaf_tpu/ops/fused_frontend.py:336",
          "launches": train_counts["fwd_save"], "max_abs_err": fwd_save_err,
-         **timing["fwd_save"]},
+         **_fields(timing["fwd_save"])},
         {"name": "fused_gabor_sqmod_lowpass_bwd", "route": "cuda",
          "source": src + "fused_frontend_bwd.cu",
          "replaces": "leaf_tpu/ops/fused_frontend.py:422",
          "launches": train_counts["bwd"], "max_abs_err": bwd_err,
-         **timing["bwd"]},
+         **_fields(timing["bwd"])},
         {"name": "fused_gabor_sqmod_lowpass_fwd_bf16", "route": "cuda",
          "source": src + "fused_frontend_bf16.cu",
          "replaces": "leaf_tpu/ops/fused_frontend.py:325",
          "launches": bf16_launches, "max_abs_err": bf16_err["fwd"],
-         **timing["fwd_bf16"]},
+         **_fields(timing["fwd_bf16"])},
         {"name": "fused_gabor_sqmod_lowpass_fwd_saving_bf16", "route": "cuda",
          "source": src + "fused_frontend_bf16.cu",
          "replaces": "leaf_tpu/ops/fused_frontend.py:336",
          "launches": bf16_counts["fwd_save_bf16"],
-         "max_abs_err": bf16_err["fwd_save"], **timing["fwd_save_bf16"]},
+         "max_abs_err": bf16_err["fwd_save"], **_fields(timing["fwd_save_bf16"])},
         {"name": "fused_gabor_sqmod_lowpass_bwd_bf16", "route": "cuda",
          "source": src + "fused_frontend_bwd_bf16.cu",
          "replaces": "leaf_tpu/ops/fused_frontend.py:422",
          "launches": bf16_counts["bwd_bf16"], "max_abs_err": bf16_err["bwd"],
-         **timing["bwd_bf16"]},
+         **_fields(timing["bwd_bf16"])},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,9 @@ other numbers than the JAX package's ``jax.random`` keys.
 Under ``compute_dtype=bfloat16`` the logits are bf16 and the losses are
 formed as optax forms them: the softmax cross-entropy per example in
 bf16 (logsumexp minus the label's logit), its mean summed in f32 and
-returned as bf16; the sigmoid BCE in the promoted dtype of logits and
-targets. The eval step's weighted loss and its outputs are f32.
+returned as bf16; the sigmoid BCE in bf16 too (optax casts the targets
+to the logits' dtype). The eval step's weighted loss and its outputs are
+f32.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 
 from leaf_tpu_torch.training.state import (TrainState, schedule_lrs,
                                            set_schedule_clock)
@@ -62,15 +62,24 @@ def cross_entropy_loss(logits: torch.Tensor,
 
 def bce_logits_loss(logits: torch.Tensor,
                     targets: torch.Tensor) -> torch.Tensor:
-    """Mean sigmoid BCE over all elements (BCEWithLogitsLoss), in the
-    promoted dtype of logits and targets (optax's)."""
+    """Mean sigmoid BCE over all elements (BCEWithLogitsLoss), at the
+    logits' dtype as ``optax.sigmoid_binary_cross_entropy`` forms it."""
     return _bce(logits, targets).mean()
 
 
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: −softplus(−x), softplus(z) = logaddexp(z, 0)
+    = max(z, 0) + log1p(exp(−|z|)), each op at x's dtype."""
+    z = -x
+    return -(torch.clamp(z, min=0) + torch.log1p(torch.exp(-z.abs())))
+
+
 def _bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    dt = torch.promote_types(logits.dtype, targets.dtype)
-    return F.binary_cross_entropy_with_logits(
-        logits.to(dt), targets.to(dt), reduction="none")
+    """Per-element BCE as optax forms it: the targets cast to the logits'
+    dtype, −t·log σ(l) − (1 − t)·log σ(−l) with every op at that dtype (a
+    bf16 model's loss is a bf16 loss, as JAX's is)."""
+    t = targets.to(logits.dtype)
+    return -t * _log_sigmoid(logits) - (1.0 - t) * _log_sigmoid(-logits)
 
 
 def mixup(generator: Optional[torch.Generator], inputs: torch.Tensor,

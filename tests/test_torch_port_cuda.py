@@ -1039,3 +1039,39 @@ def test_dryrun_multichip_on_the_card(cuda_device, capsys):
     line = dryrun_multichip(n)
     assert f"dryrun_multichip({n}): ok" in line
     assert "bit-identical" in capsys.readouterr().out
+
+
+# the measurement tools chip_smoke.py does not drive, each at a tiny
+# iteration count: (tool, arguments, the device fields of its record)
+TOOL_RUNS = [
+    ("kernel_profile", ["--batch", "16", "--execs", "1", "--top", "5"],
+     lambda r: [r["device_busy_ms"], r["frontend_kernel_ms"]]),
+    ("scan_profile", ["--batch", "16", "--k", "2", "--steps", "2",
+                      "--top", "5"],
+     lambda r: [r["single"]["busy_ms_per_step"],
+                r["multi"]["busy_ms_per_step"]]),
+    ("streaming_latency", ["--chunks", "1600", "--batch", "4",
+                           "--wall-reps", "3", "--trace-execs", "1"],
+     lambda r: [r["device_busy_ms"], r["realtime_factor_busy"]]),
+    ("dw_ab", ["--batch", "16", "--iters", "2"],
+     lambda r: [*r["f32"]["total"].values(), *r["bf16"]["total"].values()]),
+    ("dw_layout_ab", ["--batch", "16", "--iters", "2"],
+     lambda r: [*r["f32"]["total"].values(), *r["bf16"]["total"].values()]),
+]
+
+
+@pytest.mark.parametrize("name,argv,fields", TOOL_RUNS,
+                         ids=[t[0] for t in TOOL_RUNS])
+def test_measurement_tool_on_card(cuda_device, name, argv, fields, capsys):
+    import importlib
+    tool = importlib.import_module(f"leaf_tpu_torch.scripts.{name}")
+    assert tool.main(argv) == 0
+    records = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+               if ln.startswith("{")]
+    assert records
+    for rec in records:
+        assert rec["device"] == torch.cuda.get_device_name(0)
+        assert rec["power_limit"] and rec["count"] >= 1
+        values = fields(rec)
+        assert values and all(v is not None and np.isfinite(v) and v > 0
+                              for v in values), (name, values)

@@ -282,6 +282,12 @@ def test_port_imports_no_jax():
             "pack_dataset.py", "pretrained.py", "synthetic_convergence.py",
             "import_torch_classifier.py", "convert_torch_checkpoint.py"} <= {
                 p.name for p in sources}
+    # the measurement tools, each the counterpart of a JAX scripts/ file
+    tools = {"_measure", "step_profile", "serving_latency",
+             "streaming_latency", "kernel_microbench", "kernel_profile",
+             "e2e_gap", "scan_ab", "scan_profile", "dw_ab", "dw_layout_ab"}
+    assert {f"{t}.py" for t in tools} <= {
+        p.name for p in sources if p.parent.name == "scripts"}
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
               "leaf_tpu", "yaml", "pandas", "soundfile", "msgpack",
               "msgpack_numpy", "google"}
