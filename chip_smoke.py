@@ -26,6 +26,17 @@ no result. TF32 is off throughout (cuDNN and matmul).
 4. parity-bf16  — the three bf16 kernels vs their plain bf16 versions at
                   the same shapes (out, OUT within one bf16 ulp, d_bank,
                   d_windows); two launches of each bit-equal
+4a. smoke-leaf  — ``python -m leaf_tpu_torch.scripts.smoke_leaf`` (its
+                  ``main([])``) on the card: ``Leaf()`` at its defaults
+                  launches the primal kernel once and prints ``output:
+                  (1, 100, 40)``; the kernel against its plain version on
+                  the smoke's operands, and the output against the same
+                  Leaf with ``use_fused_kernel='off'`` (both at the parity
+                  tolerance); both recipe sweeps,
+                  ``leaf_tpu_torch/scripts/speechcommands_init_exps.sh``
+                  and ``voxceleb_run.sh``, run by bash with a stub
+                  ``python`` first on PATH, give their 15 and 10 ``python
+                  -m leaf_tpu_torch.train`` command lines
 5. serving      — the flagship LEAF + EfficientNet-b0 classifier (seeded
                   random weights) answers requests of 3, 8, 64 and 100 clips
                   through ``ServingModel`` with buckets (8, 64); one primal
@@ -163,6 +174,8 @@ no result. TF32 is off throughout (cuDNN and matmul).
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -570,6 +583,83 @@ def phase_parity_bf16(device):
         del x_all
         torch.cuda.empty_cache()
     return worst
+
+
+# the recipe sweeps' grids: (cfg directory, cfgs); seeds 8881-8885 each
+SWEEPS = {
+    "speechcommands_init_exps.sh": (
+        "speechcommands", ("efficientnet-b0-leaf-default_random",
+                           "efficientnet-b0-leaf-default_kaiming",
+                           "efficientnet-b0-leaf-default_xavier")),
+    "voxceleb_run.sh": ("voxceleb", ("efficientnet-b0-leaf-default",
+                                     "resnet-18-leaf-default")),
+}
+
+
+def phase_smoke_leaf(device) -> None:
+    """The forward smoke's primal launch and its output against 'off';
+    the recipe sweeps' command lines (a stub ``python``)."""
+    from leaf_tpu_torch.frontend import Leaf
+    from leaf_tpu_torch.ops.fused_frontend import (fused_forward_cuda,
+                                                   fused_reference)
+    from leaf_tpu_torch.scripts import smoke_leaf
+
+    # the plain versions' cuDNN convs in f32 (with TF32 they put the Leaf
+    # at 3.1× the parity tolerance)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _zero_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = smoke_leaf.main([])
+    counts = _counts()
+    lines = printed.getvalue().splitlines()
+    log(f"[smoke-leaf] {' | '.join(lines)}; launches {counts}")
+    if (rc != 0 or "output: (1, 100, 40)" not in lines
+            or counts != {**_no_launches(), "fwd": 1}):
+        raise AssertionError(f"smoke_leaf: rc {rc}, {lines}, {counts}")
+    # comparison launches at the parity tolerance: the kernel against its
+    # plain version on the smoke's own operands, and the smoke's Leaf
+    # against the same Leaf 'off'
+    leaf, x, got = smoke_leaf.smoke(device)
+    off = Leaf(use_fused_kernel="off", device=device)
+    off.load_state_dict(leaf.state_dict())
+    with torch.no_grad():
+        bank = leaf._complex_conv.emit_filters().contiguous()
+        windows = leaf._pooling.emit_windows()[0].contiguous()
+        _check_elementwise("[smoke-leaf]", "fused_fwd on the smoke's operands",
+                           fused_forward_cuda(x, bank, windows),
+                           fused_reference(x, bank, windows))
+        _check_elementwise("[smoke-leaf]", "Leaf() 'auto' vs 'off'", got,
+                           off(x))
+    if lines[2] != (f"min/max/mean: {float(got.min())} {float(got.max())} "
+                    f"{float(got.mean())}"):
+        raise AssertionError(f"smoke_leaf printed {lines[2]!r}, not its "
+                             f"output's range")
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="leaf_sweep_") as tmp:
+        stub = os.path.join(tmp, "python")
+        with open(stub, "w") as f:
+            f.write('#!/usr/bin/env bash\necho "$PWD $*" >> "$STUB_LOG"\n')
+        os.chmod(stub, 0o755)
+        for script, (folder, cfgs) in SWEEPS.items():
+            log_path = os.path.join(tmp, script + ".log")
+            env = {**os.environ, "PATH": tmp + os.pathsep + os.environ["PATH"],
+                   "STUB_LOG": log_path, "EXP_ROOT": "/sweep", "EPOCHS": "3"}
+            subprocess.run(["bash", os.path.join(
+                repo, "leaf_tpu_torch", "scripts", script)], check=True,
+                env=env, cwd=tmp, timeout=60)
+            with open(log_path) as f:
+                got_runs = f.read().splitlines()
+            want = [f"{repo} -m leaf_tpu_torch.train --cfg_file "
+                    f"cfgs/{folder}/{cfg}.cfg --expdir /sweep/{cfg}_seed"
+                    f"{seed} --epochs 3 --random_seed {seed}"
+                    for cfg in cfgs for seed in range(8881, 8886)]
+            log(f"[smoke-leaf] {script}: {len(got_runs)} runs, e.g. "
+                f"`python {got_runs[0].split(' ', 1)[1]}`")
+            if got_runs != want or len(want) != 5 * len(cfgs):
+                raise AssertionError(f"{script}: {got_runs} != {want}")
 
 
 def phase_serving(device):
@@ -2605,6 +2695,7 @@ def main() -> int:
     max_abs_err = timed("parity", phase_parity, device)
     fwd_save_err, bwd_err = timed("parity-train", phase_parity_train, device)
     bf16_err = timed("parity-bf16", phase_parity_bf16, device)
+    timed("smoke-leaf", phase_smoke_leaf, device)
     launches, server, state = timed("serving", phase_serving, device)
     bf16_launches, server_bf16 = timed("serving-bf16", phase_serving_bf16,
                                        device)

@@ -4,7 +4,10 @@ The JAX package ``leaf_tpu`` is the reference this package is held
 against; nothing here imports it. Entry points (``Classifier``,
 ``get_frontend``, ``get_classifier``, ``ServingModel``) run on the CUDA
 device unless the caller passes ``device="cpu"``; without a card they
-raise instead of carrying on on the CPU.
+raise instead of carrying on on the CPU. The top level exports what
+``leaf_tpu``'s does (``Leaf``, ``get_frontend``, the serving models and
+their exporters, ``__version__``) and ``resolve_device``. Importing the
+package builds and loads no kernel: each builds at its first launch.
 """
 
 from __future__ import annotations
@@ -13,7 +16,11 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__version__ = "0.2.0"
+
+__all__ = ["resolve_device", "Leaf", "get_frontend", "ServingModel",
+           "StreamingServingModel", "save_exported", "save_exported_streaming",
+           "__version__"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -29,3 +36,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "leaf_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run on the CPU explicitly")
     return dev
+
+
+# after resolve_device: the frontend and serving modules import it from here
+from leaf_tpu_torch.frontend import Leaf, get_frontend  # noqa: E402
+from leaf_tpu_torch.serving import (  # noqa: E402
+    ServingModel,
+    StreamingServingModel,
+    save_exported,
+    save_exported_streaming,
+)

@@ -31,58 +31,10 @@ import os
 import sys
 
 import numpy as np
-import torch
 
 from leaf_tpu_torch import resolve_device
-
-KEY_MAP = {
-    "_complex_conv._kernel": ("complex_conv", "kernel", None),
-    "_pooling.weights": ("pooling", "weights", lambda a: a.reshape(-1)),
-    "_pooling._bias": ("pooling", "bias", None),
-    "_compression.alpha": ("compression", "alpha", None),
-    "_compression.delta": ("compression", "delta", None),
-    "_compression.root": ("compression", "root", None),
-    "_compression.ema._weights": ("compression", "ema", "weights", None),
-}
-
-
-def convert_frontend_state_dict(state_dict: dict) -> dict:
-    """A reference ``state_dict`` (torch tensors or arrays) → the LEAF
-    frontend's tensors as a flat {npz path: float32 ndarray}; every other
-    key is passed over."""
-    out = {}
-    for key, value in state_dict.items():
-        # strip common prefixes: 'features.' (Classifier) or 'module.'
-        k = key
-        for prefix in ("module.", "features.", "model.features."):
-            if k.startswith(prefix):
-                k = k[len(prefix):]
-        if k not in KEY_MAP:
-            continue
-        *path, transform = KEY_MAP[k]
-        arr = np.asarray(value.detach().cpu().numpy()
-                         if hasattr(value, "detach") else value,
-                         dtype=np.float32)
-        if transform is not None:
-            arr = transform(arr)
-        out["/".join(path)] = arr
-    return out
-
-
-def load_reference_checkpoint(path: str, device) -> tuple:
-    """(state_dict, the raw object) of a reference ``.pth``: training
-    checkpoints hold the weights under ``model_state_dict`` (reference
-    train_xla.py:38-41); exports may use ``state_dict`` or ``model``, or
-    be a bare ``state_dict`` or ``nn.Module``. The file is unpickled whole
-    (it may hold more than tensors): open only checkpoints you trust."""
-    raw = torch.load(path, map_location=device, weights_only=False)
-    state_dict = raw
-    if isinstance(raw, dict):
-        state_dict = (raw.get("model_state_dict") or raw.get("state_dict")
-                      or raw.get("model") or raw)
-    if hasattr(state_dict, "state_dict"):
-        state_dict = state_dict.state_dict()
-    return state_dict, raw
+from leaf_tpu_torch.models.torch_import import (convert_frontend_state_dict,
+                                                load_reference_checkpoint)
 
 
 def main(argv=None) -> int:

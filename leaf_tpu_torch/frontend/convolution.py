@@ -23,7 +23,7 @@ from leaf_tpu_torch.frontend import initializers
 from leaf_tpu_torch.frontend.impulse_responses import gabor_filters_real_imag
 from leaf_tpu_torch.frontend.utils import tf_same_padding_1d
 
-__all__ = ["GaborConv1d", "gabor_constraint"]
+__all__ = ["GaborConstraint", "GaborConv1d", "gabor_constraint"]
 
 
 def gabor_constraint(kernel_data: torch.Tensor, kernel_size: int) -> torch.Tensor:
@@ -42,6 +42,18 @@ def gabor_constraint(kernel_data: torch.Tensor, kernel_size: int) -> torch.Tenso
         kernel_size * sqrt_2log2 / math.pi,
     )
     return torch.stack([mu, sigma], dim=1)
+
+
+class GaborConstraint(nn.Module):
+    """Module wrapper around :func:`gabor_constraint` (API parity with the
+    JAX package's ``GaborConstraint``)."""
+
+    def __init__(self, kernel_size: int):
+        super().__init__()
+        self.kernel_size = kernel_size
+
+    def forward(self, kernel_data: torch.Tensor) -> torch.Tensor:
+        return gabor_constraint(kernel_data, self.kernel_size)
 
 
 class GaborConv1d(nn.Module):

@@ -7,7 +7,8 @@ under ``model_state_dict``, reference train_xla.py:38-41; also
 ``state_dict``, ``model`` or a bare ``state_dict``), strips the
 ``module.`` prefix a DataParallel wrapper adds, and loads the
 ``state_dict`` strictly into ``Classifier(cfg)`` built from the
-experiment cfg: the port keeps the reference's tensor names (frontend,
+experiment cfg (``leaf_tpu_torch.models.import_torch_classifier``, the
+library function): the port keeps the reference's tensor names (frontend,
 backbone, BatchNorm running statistics), so no key is mapped. A missing,
 extra or misshaped tensor (a checkpoint of another arch, depth or class
 count) raises before anything is written.
@@ -34,8 +35,9 @@ import argparse
 import torch
 
 from leaf_tpu_torch import resolve_device
-from leaf_tpu_torch.convert_torch_checkpoint import load_reference_checkpoint
 from leaf_tpu_torch.models import Classifier
+from leaf_tpu_torch.models.torch_import import (import_torch_classifier,
+                                                load_reference_checkpoint)
 from leaf_tpu_torch.training import TrainState
 from leaf_tpu_torch.training.checkpoint import save_checkpoint, save_hparams
 from leaf_tpu_torch.training.config import parse_config
@@ -52,12 +54,11 @@ def import_classifier(torch_ckpt: str, cfg_file: str, out_expdir: str,
     if isinstance(raw, dict):
         meta = {k: raw[k] for k in _META
                 if isinstance(raw.get(k), (int, float))}
-    state_dict = {k[len("module."):] if k.startswith("module.") else k: v
-                  for k, v in state_dict.items()}
     cfg = parse_config(cfg_file)
-    model = Classifier(cfg, device=device,
-                       generator=torch.Generator().manual_seed(0))
-    model.load_state_dict(state_dict, strict=True)
+    model = import_torch_classifier(
+        state_dict, Classifier(cfg, device=device,
+                               generator=torch.Generator().manual_seed(0)),
+        cfg["model"]["arch"])
     path = save_checkpoint(
         out_expdir, TrainState(model, None), epoch=int(meta.get("epoch", 0)),
         tr_loss=float(meta.get("tr_loss", -1.0)),

@@ -56,6 +56,7 @@ __all__ = [
     "decode_block_string",
     "round_filters",
     "round_repeats",
+    "efficientnet_params",
     "get_model_params",
     "MBConvBlock",
     "EfficientNet",
@@ -123,6 +124,12 @@ _SCALING_COEFFICIENTS = {
 VALID_MODELS = tuple(_SCALING_COEFFICIENTS)
 
 
+def efficientnet_params(model_name: str) -> Tuple[float, float, int, float]:
+    """(width, depth, resolution, dropout) of ``model_name``, e.g.
+    ``"efficientnet-b0"``; an unknown name raises ``KeyError``."""
+    return _SCALING_COEFFICIENTS[model_name]
+
+
 def decode_block_string(block_string: str) -> BlockArgs:
     """Parse e.g. 'r1_k3_s11_e1_i32_o16_se0.25' (reference: utils.py:370-402)."""
     options = {}
@@ -169,7 +176,7 @@ def round_repeats(repeats: int, gp: GlobalParams) -> int:
 
 def get_model_params(model_name: str, num_classes: int = 1000,
                      **overrides) -> Tuple[Sequence[BlockArgs], GlobalParams]:
-    width, depth, _res, dropout = _SCALING_COEFFICIENTS[model_name]
+    width, depth, _res, dropout = efficientnet_params(model_name)
     blocks = [decode_block_string(s) for s in B0_BLOCK_STRINGS]
     gp = GlobalParams(width_coefficient=width, depth_coefficient=depth,
                       dropout_rate=dropout, num_classes=num_classes)

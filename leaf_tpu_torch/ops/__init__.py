@@ -8,3 +8,5 @@ from leaf_tpu_torch.ops.fused_frontend import (  # noqa: F401
     fused_gabor_sqmod_lowpass,
     lowpass_frames_out,
 )
+
+__all__ = ["fused_gabor_sqmod_lowpass", "lowpass_frames_out"]

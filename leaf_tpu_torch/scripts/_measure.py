@@ -9,6 +9,7 @@ the tools of ``leaf_tpu_torch.scripts`` and ``chip_smoke.py`` share.
   device rows by kernel name (count and ms per call), the busy ms per
   call and the idle share against a host-clock median taken without the
   profiler. ``host_profile``: the host ops by self CPU time.
+  ``profile_window``: the profiler's window under them, padded.
   ``collectives``: the c10d calls and NCCL kernels of one call.
 - ``categorize``: the device rows rolled up by what they compute.
 - The H100's published peaks, ``bound`` and ``frontend_work``: the
@@ -40,7 +41,8 @@ __all__ = ["F32_PEAK_FLOPS", "TF32_PEAK_FLOPS", "BF16_PEAK_FLOPS",
            "HBM_BYTES_PER_S", "CATEGORIES", "OTHER", "bound",
            "frontend_work",
            "cuda_time_ms", "event_timer", "host_times_ms", "DeviceProfile",
-           "device_profile", "host_profile", "collectives", "categorize",
+           "WINDOW_PAD_S", "profile_window", "device_profile",
+           "host_profile", "collectives", "categorize",
            "card", "smi_line", "open_device", "emit", "sync"]
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
@@ -151,14 +153,32 @@ def host_times_ms(fn: Callable, n: int, device, warmup: int = 3,
     return times
 
 
-def _events(fn: Callable, n: int):
+# Kineto keeps a device activity only where its span, moved onto the host
+# clock, lies inside the profiler's window. On the H100 that move has been
+# seen a few ms early (kernels stamped before the host launched them),
+# which dropped the first ~100 kernels of a CUDA-graph replay, a saving
+# forward among them (``python -m tests.torch_profile_window_check``
+# counts such windows). A host pause at each edge of the window keeps the
+# work inside it; a pause adds no device row and no host op.
+WINDOW_PAD_S = 0.05
+
+
+def profile_window(fn: Callable, n: int, pad: float = WINDOW_PAD_S):
+    """torch.profiler (CPU and CUDA) over ``n`` calls of ``fn`` and a
+    synchronize, with a host pause of ``pad`` s at each edge."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return prof.key_averages()
+        time.sleep(pad)
+    return prof
+
+
+def _events(fn: Callable, n: int):
+    return profile_window(fn, n).key_averages()
 
 
 def _is_device_work(event) -> bool:

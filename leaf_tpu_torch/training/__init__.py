@@ -3,7 +3,10 @@ state, the train steps (one, or K per call) and the eval step,
 checkpoints, BN recalibration, metrics, histograms and loggers
 (``leaf_tpu.training``'s counterparts)."""
 
-from leaf_tpu_torch.training.config import get_config  # noqa: F401
+from leaf_tpu_torch.training.config import (  # noqa: F401
+    get_config,
+    parse_config,
+)
 
 from leaf_tpu_torch.training.optim import (  # noqa: F401
     ReduceLROnPlateau,
@@ -29,6 +32,7 @@ from leaf_tpu_torch.training.steps import (  # noqa: F401
 
 __all__ = [
     "get_config",
+    "parse_config",
     "optimization_helper",
     "ReduceLROnPlateau",
     "step_schedule",

@@ -1075,3 +1075,23 @@ def test_measurement_tool_on_card(cuda_device, name, argv, fields, capsys):
         values = fields(rec)
         assert values and all(v is not None and np.isfinite(v) and v > 0
                               for v in values), (name, values)
+
+
+def test_smoke_leaf_on_card(cuda_device, capsys):
+    # the forward smoke runs Leaf()'s fused primal kernel on the card and
+    # agrees with the plain version (Leaf 'off') on its waveform
+    from leaf_tpu_torch.scripts import smoke_leaf
+    before = fused.fused_forward_cuda.launches
+    assert smoke_leaf.main([]) == 0
+    assert fused.fused_forward_cuda.launches == before + 1
+    out = capsys.readouterr().out
+    assert "input: (1, 16000)" in out and "output: (1, 100, 40)" in out
+    leaf, x, got = smoke_leaf.smoke("cuda")
+    off = Leaf(use_fused_kernel="off", device=cuda_device)
+    off.load_state_dict(leaf.state_dict())
+    with torch.no_grad():
+        ref = off(x)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    lo, hi, mean = (float(v) for v in out.split("min/max/mean:")[1].split())
+    assert (lo, hi, mean) == (float(got.min()), float(got.max()),
+                              float(got.mean()))

@@ -10,7 +10,8 @@ never written under a device metric's name). Without a card and without
 
 ``_measure``: ``frontend_work`` + ``bound`` give the bounds PERF.md's
 kernel table states (to 1e-4 ms); ``categorize`` assigns each category
-from a fixed list of kernel names. ``dw_ab``'s shift-multiply equals the
+from a fixed list of kernel names; the profile readers' window pauses
+at each edge. ``dw_ab``'s shift-multiply equals the
 grouped conv2d at every b0 depthwise site (forward, dx and dw, B=2, f32,
 within 1e-5 of each tensor's largest entry). ``e2e_gap``'s loader gives
 the same batches with ``in_memory`` on and off.
@@ -214,6 +215,38 @@ def test_categorize_assigns_every_category():
     got = _measure.categorize(rows)
     assert list(got) == [c for c, _ in _measure.CATEGORIES] + [_measure.OTHER]
     assert got == {c: float(len(ns)) for c, ns in names.items()}, got
+
+
+def test_profile_window_pads_both_edges(monkeypatch):
+    """The profiler's window opens a pause before the first call and closes
+    a pause after the closing synchronize, so that device work stamped a
+    few ms off the host clock still falls inside it."""
+    import torch.profiler
+    seen = []
+
+    class Window:
+        def __init__(self, **kw):
+            pass
+
+        def __enter__(self):
+            seen.append("open")
+            return self
+
+        def __exit__(self, *exc):
+            seen.append("close")
+
+        def key_averages(self):
+            return []
+
+    monkeypatch.setattr(torch.profiler, "profile", Window)
+    monkeypatch.setattr(_measure.time, "sleep",
+                        lambda s: seen.append(("pause", s)))
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: seen.append("sync"))
+    assert _measure._events(lambda: seen.append("call"), 2) == []
+    pause = ("pause", _measure.WINDOW_PAD_S)
+    assert seen == ["open", pause, "call", "call", "sync", pause, "close"]
+    assert _measure.WINDOW_PAD_S >= 0.02  # ≥ 5× the ~4 ms offset seen
 
 
 @pytest.mark.parametrize("shape", dw_ab.B0_DW_SHAPES,
