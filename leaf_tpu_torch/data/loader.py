@@ -27,6 +27,7 @@ import numpy as np
 
 import torch
 
+from leaf_tpu_torch import tracing
 from leaf_tpu_torch.data.dataset import deflate_packed_batch
 
 __all__ = ["ShardedSampler", "collate_fixed", "collate_contrastive",
@@ -253,6 +254,8 @@ def prefetch_to_device(iterator, place_fn: Callable, size: int = 2):
     generator early (break / exception / GeneratorExit — e.g. the SIGTERM
     preemption path) stops the feeder and releases its queued device
     buffers instead of leaving a thread blocked in ``q.put`` forever.
+    A wait on an empty queue is the span ``leaf_tpu_torch.feed.starved``
+    (``tracing``) on the consumer's thread.
     """
     q: "queue.Queue" = queue.Queue(maxsize=max(1, size))
     sentinel = object()
@@ -285,7 +288,11 @@ def prefetch_to_device(iterator, place_fn: Callable, size: int = 2):
     feeder_thread.start()
     try:
         while True:
-            item = q.get()
+            try:
+                item = q.get_nowait()
+            except queue.Empty:     # the feeder is behind: the consumer waits
+                with tracing.span("leaf_tpu_torch.feed.starved"):
+                    item = q.get()
             if item is sentinel:
                 if errors:
                     raise errors[0]

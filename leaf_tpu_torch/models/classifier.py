@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from leaf_tpu_torch import resolve_device
+from leaf_tpu_torch import resolve_device, tracing
 from leaf_tpu_torch.frontend.helper import compute_dtype_of, get_frontend
 from leaf_tpu_torch.models import cifar_resnet, densenet, resnet
 from leaf_tpu_torch.models.efficientnet import VALID_MODELS, EfficientNet
@@ -97,9 +97,13 @@ class Classifier(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Waveforms → logits. In train mode (``.train()``) BatchNorm uses
         batch statistics and updates its running stats, and dropout and
-        drop-connect draw from ``generator`` (on x's device)."""
-        out = self.features(x)                      # (B, frames, n_filters)
-        return self.model(out.transpose(1, 2)[..., None], generator)
+        drop-connect draw from ``generator`` (on x's device). Marks the
+        frontend and backbone phases on the device (``tracing``)."""
+        tracing.mark("mark_forward", x)
+        out = tracing.boundary(self.features(x))    # (B, frames, n_filters)
+        logits = self.model(out.transpose(1, 2)[..., None], generator)
+        tracing.mark("mark_backbone", logits)
+        return logits
 
     def features_only(self, x: torch.Tensor) -> torch.Tensor:
         """LEAF features without the backbone — the reference's

@@ -27,13 +27,20 @@ __all__ = ["load_library", "BUILD_DIR", "SOURCES"]
 
 _HERE = Path(__file__).resolve().parent
 # library name → source: the forward kernels (primal and residual-saving)
-# and the backward kernel, in f32 (3×TF32) and in bf16
+# and the backward kernel, in f32 (3×TF32) and in bf16, and the device
+# phase markers (``leaf_tpu_torch.tracing``)
 SOURCES = {"fwd": _HERE / "csrc" / "fused_frontend.cu",
            "bwd": _HERE / "csrc" / "fused_frontend_bwd.cu",
            "fwd_bf16": _HERE / "csrc" / "fused_frontend_bf16.cu",
-           "bwd_bf16": _HERE / "csrc" / "fused_frontend_bwd_bf16.cu"}
+           "bwd_bf16": _HERE / "csrc" / "fused_frontend_bwd_bf16.cu",
+           "marks": _HERE / "csrc" / "marks.cu"}
 BUILD_DIR = _HERE / "build"
-_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+# the fused kernels are sm_90a SASS (wgmma); the markers are sm_90 SASS
+# and portable PTX, which the driver compiles at load on any other card
+_ARCH = {"marks": ["-gencode", "arch=compute_90,code=sm_90",
+                   "-gencode", "arch=compute_75,code=compute_75"]}
+_HOPPER = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = ["-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry point → argument types (the launches return the launch's CUDA
@@ -46,6 +53,8 @@ _SIGNATURES = {
                  "leaf_fused_fwd_save_bf16": [_PTR] * 5 + [_INT] * 4 + [_PTR]},
     "bwd_bf16": {"leaf_fused_bwd_bf16": [_PTR] * 6 + [_INT] * 5 + [_PTR],
                  "leaf_fused_bwd_bf16_smem_bytes": []},
+    "marks": {"leaf_phase_mark": [_INT, _PTR],
+              "leaf_phase_marks_load": []},
 }
 
 
@@ -91,8 +100,12 @@ def _inputs(path: Path) -> list:
     return files
 
 
+def _flags(name: str) -> list:
+    return _ARCH.get(name, _HOPPER) + _FLAGS
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for f in _inputs(SOURCES[name]):
         h.update(f.name.encode() + b"\0" + f.read_bytes())
     digest = h.hexdigest()[:16]
@@ -115,7 +128,7 @@ def load_library() -> KernelLibrary:
                 fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
                 os.close(fd)
                 jobs[name] = (tmp, subprocess.Popen(
-                    [nvcc, *_FLAGS, "-o", tmp, str(SOURCES[name])],
+                    [nvcc, *_flags(name), "-o", tmp, str(SOURCES[name])],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True))
             for name, (tmp, proc) in jobs.items():

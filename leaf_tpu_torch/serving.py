@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 import leaf_tpu_torch.ops  # noqa: F401  (registers the kernels' ops)
-from leaf_tpu_torch import resolve_device
+from leaf_tpu_torch import resolve_device, tracing
 from leaf_tpu_torch.frontend.streaming import LeafStreamer
 from leaf_tpu_torch.models.classifier import Classifier
 from leaf_tpu_torch.models.jax_import import load_jax_variables
@@ -122,24 +122,38 @@ class ServingModel:
 
     def __call__(self, waveforms) -> np.ndarray:
         """(B, clip_samples) float32 → (B, num_classes) float32 logits
-        (a bf16 model's logits widened: numpy has no bf16)."""
-        x = torch.as_tensor(np.asarray(waveforms, dtype=np.float32))
-        if x.ndim != 2 or x.shape[1] != self.clip_samples:
-            raise ValueError(f"expected (B, {self.clip_samples}) waveforms, "
-                             f"got {tuple(x.shape)}")
+        (a bf16 model's logits widened: numpy has no bf16).
+
+        The host's work is split into the spans ``leaf_tpu_torch.serve.*``
+        (``tracing``): ``prepare`` (the request's conversion and check,
+        then each chunk's slice and padding), ``h2d`` (the chunk's copy to
+        the device; host-synchronous from pageable memory), ``forward``
+        (the dispatch of the bucket's forward) and ``fetch`` (the logits
+        to the host, and the request's concatenation)."""
+        with tracing.span("leaf_tpu_torch.serve.prepare"):
+            x = torch.as_tensor(np.asarray(waveforms, dtype=np.float32))
+            if x.ndim != 2 or x.shape[1] != self.clip_samples:
+                raise ValueError(f"expected (B, {self.clip_samples}) "
+                                 f"waveforms, got {tuple(x.shape)}")
         outs = []
         largest = self.batch_sizes[-1]
         with torch.inference_mode():
             for start in range(0, x.shape[0], largest):
-                chunk = x[start:start + largest]
-                take = chunk.shape[0]
-                b = self._bucket(take)
-                if take < b:
-                    chunk = torch.nn.functional.pad(chunk, (0, 0, 0, b - take))
-                logits = self._forward[b](chunk.to(self.device,
-                                                   non_blocking=True))
-                outs.append(logits[:take].float().cpu().numpy())
-        return np.concatenate(outs, axis=0)
+                with tracing.span("leaf_tpu_torch.serve.prepare"):
+                    chunk = x[start:start + largest]
+                    take = chunk.shape[0]
+                    b = self._bucket(take)
+                    if take < b:
+                        chunk = torch.nn.functional.pad(
+                            chunk, (0, 0, 0, b - take))
+                with tracing.span("leaf_tpu_torch.serve.h2d"):
+                    chunk = chunk.to(self.device, non_blocking=True)
+                with tracing.span("leaf_tpu_torch.serve.forward"):
+                    logits = self._forward[b](chunk)
+                with tracing.span("leaf_tpu_torch.serve.fetch"):
+                    outs.append(logits[:take].float().cpu().numpy())
+        with tracing.span("leaf_tpu_torch.serve.fetch"):
+            return np.concatenate(outs, axis=0)
 
 
 def save_exported(out_dir: str, cfg: dict, *,

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from leaf_tpu_torch import tracing
 from leaf_tpu_torch.training.state import (TrainState, schedule_lrs,
                                            set_schedule_clock)
 
@@ -139,6 +140,7 @@ def _train_step_body(model_type: str, mixup_alpha: Optional[float],
     def body(state: TrainState, x: torch.Tensor, y: torch.Tensor,
              generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         model = state.model.train()
+        tracing.mark("mark_step", x)
         x = waveform_from_wire(x)
         if augment_fn is not None:
             x = augment_fn(generator, x)
@@ -146,12 +148,14 @@ def _train_step_body(model_type: str, mixup_alpha: Optional[float],
             logits, loss = forward(model, x, y, generator)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            tracing.mark("mark_backward", loss)
         else:
             share = local_share(x.shape[0], x.device, process_group)
             with sync_batch_norm(model, process_group):
                 logits, loss = forward(model, x, y, generator)
                 state.optimizer.zero_grad(set_to_none=True)
                 (loss * share).backward()
+            tracing.mark("mark_backward", loss)
         if multilabel:
             correct = torch.zeros((), dtype=torch.int32, device=x.device)
         else:
@@ -209,6 +213,7 @@ def make_train_step(model_type: str = "multiclass",
              ) -> Dict[str, torch.Tensor]:
         metrics = body(state, x, y, generator)
         state.apply_gradients()
+        tracing.mark("mark_update", x)
         if watch_norms or watch_histograms:
             named = [(n, p) for n, p in state.model.named_parameters()
                      if p.grad is not None]
@@ -269,7 +274,9 @@ class TrainMultistep:
     holds the launches one replay makes (by ``launch_counts`` name),
     ``replays`` the replays so far, and ``graph_launch_counts()`` their
     product; ``pool_bytes`` is the size of the graph's private memory
-    pool (the K steps' activations, reused from step to step).
+    pool (the K steps' activations, reused from step to step). The graph
+    holds each step's seven device markers (``tracing.MARKS``); a
+    replay's launch is the host span ``leaf_tpu_torch.train.replay``.
     """
 
     def __init__(self, steps_per_call: int, body: Callable,
@@ -330,6 +337,7 @@ class TrainMultistep:
         for k in range(self.k):
             out.append(self._body(state, xs[k], ys[k], generator))
             state.apply_gradients()
+            tracing.mark("mark_update", xs)
         return {"loss": torch.stack([m["loss"] for m in out]).mean(),
                 "correct": sum(m["correct"] for m in out),
                 "count": sum(m["count"] for m in out)}
@@ -353,6 +361,8 @@ class TrainMultistep:
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
+        # the graph's markers: built and loaded now, outside the capture
+        tracing._load_marks(xs.device)
         before = launch_counts()
         # thread_local: the host feeder thread may pin and copy meanwhile
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
@@ -364,6 +374,7 @@ class TrainMultistep:
                 out.append(self._body(state, self._xs[k], self._ys[k],
                                       generator))
                 state.optimizer.step()
+                tracing.mark("mark_update", self._xs)
             self._out = {
                 "loss": torch.stack([m["loss"] for m in out]).mean(),
                 "correct": torch.stack([m["correct"] for m in out]).sum(),
@@ -390,7 +401,8 @@ class TrainMultistep:
                    for k in range(self.k)]
             self._lrs.copy_(torch.tensor(lrs, dtype=torch.float32)
                             .pin_memory(), non_blocking=True)
-        self._graph.replay()
+        with tracing.span("leaf_tpu_torch.train.replay"):
+            self._graph.replay()
         self.replays += 1
         if sched is not None:
             set_schedule_clock(sched, sched.last_epoch + self.k)

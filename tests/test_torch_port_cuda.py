@@ -798,6 +798,107 @@ def test_multistep_needs_a_capturable_optimizer(cuda_device):
         make_train_multistep(2)(st, xs, ys)
 
 
+_MARK = re.compile(r"leaf_tpu_torch(?:::|\d+)(mark_[a-z_]+)")
+
+
+def _busy_us(rows, lo, hi):
+    """Device-busy µs inside [lo, hi] of the (start, end) rows' union."""
+    cut = sorted((max(s, lo), min(e, hi)) for s, e in rows
+                 if e > lo and s < hi)
+    total, reach = 0.0, lo
+    for s, e in cut:
+        if e > reach:
+            total += e - max(s, reach)
+            reach = e
+    return total
+
+
+def _marked_replay(frontend):
+    """In a fresh process: a K = 4 graph of train steps with the Leaf
+    frontend ``frontend`` ('auto': the fused kernels, 'off': the plain
+    ops), one replay under the profiler. Prints one JSON line: the
+    markers in device order, the replay spans, the device-busy µs, the
+    four phases' µs, and whether each load_library call ran inside a
+    capture."""
+    from torch.autograd import DeviceType
+
+    from leaf_tpu_torch.data import leaf_device_augment
+    from leaf_tpu_torch.ops import _build
+    from leaf_tpu_torch.scripts._measure import profile_window
+    from leaf_tpu_torch.training import make_train_multistep
+    loads, real = [], _build.load_library
+    _build.load_library = lambda: (
+        loads.append(torch.cuda.is_current_stream_capturing()), real())[1]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, k = torch.device("cuda"), 4
+    cfg = {**SMALL, "frontend": {**SMALL["frontend"],
+                                 "use_fused_kernel": frontend}}
+    st = _small_state(dev, True, cfg)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    multi = make_train_multistep(k, augment_fn=leaf_device_augment)
+    rng = np.random.RandomState(3)
+    xs = torch.from_numpy((rng.randn(k, 8, 16000) * 0.1)
+                          .astype(np.float32)).to(dev)
+    ys = torch.from_numpy(rng.randint(0, 5, (k, 8))).to(dev)
+    multi(st, xs, ys, gen)           # K eager steps and the capture
+    torch.cuda.synchronize()
+    prof = profile_window(lambda: multi(st, xs, ys, gen), 1)
+    events = prof.events()
+    rows = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    marks = sorted((e.time_range.start, e.time_range.end,
+                    _MARK.search(e.name).group(1)) for e in rows
+                   if _MARK.search(e.name))
+    rows = [(e.time_range.start, e.time_range.end) for e in rows]
+    at, phases = {}, 0.0
+    for s, e, m in marks:
+        at[m] = (s, e)
+        if m == "mark_update":
+            for a, b in (("mark_step", "mark_forward"),
+                         ("mark_forward", "mark_frontend"),
+                         ("mark_frontend", "mark_backbone_grad"),
+                         ("mark_backbone_grad", "mark_backward"),
+                         ("mark_backward", "mark_update")):
+                phases += _busy_us(rows, at[a][1], at[b][0])
+    print(json.dumps({
+        "marks": [m for _, _, m in marks],
+        "replays": [e.name for e in events
+                    if e.device_type == DeviceType.CPU].count(
+                        "leaf_tpu_torch.train.replay"),
+        "busy": _busy_us(rows, min(s for s, _ in rows),
+                         max(e for _, e in rows)),
+        "phases": phases, "loads": loads,
+        "fused": multi.per_replay.get("fwd_save", 0)}))
+
+
+@pytest.mark.parametrize("frontend", ["auto", "off"])
+def test_multistep_replay_marks_its_phases(cuda_device, frontend):
+    # one K = 4 replay under the profiler: four complete sequences of the
+    # seven markers in launch order, and the four phases (augment,
+    # frontend, backbone, optimizer) hold nearly all of its device time;
+    # the markers are built and loaded before the capture, on the plain
+    # frontend too (which loads no other kernel). In a fresh process, so
+    # that its profiler session is its own (PERF.md §7: on the H100 a
+    # process's first profiler session, followed by the data-parallel
+    # tests, left a later one-launch window without device rows)
+    from leaf_tpu_torch import tracing
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, "-c", "import tests.test_torch_port_cuda as t; "
+         f"t._marked_replay({frontend!r})"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["marks"] == list(tracing.MARKS) * 4
+    assert got["replays"] == 1
+    assert got["loads"] and not got["loads"][0]
+    assert got["fused"] == (4 if frontend == "auto" else 0)
+    print(f"{frontend}: phases {got['phases']:.1f} of {got['busy']:.1f} "
+          f"device-busy us")
+    assert 0.95 * got["busy"] <= got["phases"] <= got["busy"]
+
+
 def test_checkpoint_crosses_capturable_modes(cuda_device, tmp_path):
     from leaf_tpu_torch.training import make_train_step
     from leaf_tpu_torch.training.checkpoint import (load_checkpoint,
