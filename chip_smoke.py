@@ -26,7 +26,20 @@ no result. TF32 is off throughout (cuDNN and matmul).
 4. parity-bf16  — the three bf16 kernels vs their plain bf16 versions at
                   the same shapes (out, OUT within one bf16 ulp, d_bank,
                   d_windows); two launches of each bit-equal
-4a. smoke-leaf  — ``python -m leaf_tpu_torch.scripts.smoke_leaf`` (its
+4a. depthwise   — the depthwise-conv kernels (``ops/csrc/depthwise.cu``)
+                  against the native grouped conv on the padded x, TF32
+                  off: forward, input and weight gradient at b0's 12
+                  sites (B=256) and AudioSet's 32 x 250 planes (stride 1
+                  and 2) as the classifier runs them, and each of these
+                  transposed; the weight gradient bit-equal over two
+                  launches;
+                  each pass's device-busy ms, the native conv's beside it,
+                  against the pass's bytes bound (dw_ab's kernel table);
+                  [train] counts their launches (16 of each a b0 step,
+                  16 forwards an eval forward) and [multistep] sees 16 × K
+                  of each in a replay's profile and no native
+                  conv_depthwise2d kernel
+4b. smoke-leaf  — ``python -m leaf_tpu_torch.scripts.smoke_leaf`` (its
                   ``main([])``) on the card: ``Leaf()`` at its defaults
                   launches the primal kernel once and prints ``output:
                   (1, 100, 40)``; the kernel against its plain version on
@@ -166,7 +179,8 @@ no result. TF32 is off throughout (cuDNN and matmul).
                   launch counts are logged. The two rows run side by side
                   (each its own --root), beside [dp-cli]
 12. report       — card name and power limit, the ``kernels`` JSON line (six
-                  kernels: f32 and bf16), and the last line
+                  kernels: f32 and bf16; the three depthwise kernels), and
+                  the last line
                   ``{"ok": true, "device": {...}}``
 
     python3 chip_smoke.py
@@ -189,7 +203,7 @@ import time
 import numpy as np
 import torch
 
-from leaf_tpu_torch.scripts import (_measure, e2e_gap, scan_ab,
+from leaf_tpu_torch.scripts import (_measure, dw_ab, e2e_gap, scan_ab,
                                     serving_latency, streaming_latency)
 from leaf_tpu_torch.scripts.kernel_microbench import (kernel_timings,
                                                       leaf_operands)
@@ -334,6 +348,19 @@ def _check_bf16_build(build_log: str, source: str, tag: str) -> None:
             f"{serialized} (want no spill and none)")
 
 
+def _check_no_spill(build_log: str, source: str) -> None:
+    """A library's ptxas report: a spill fails (an earlier build that was
+    reused has no report here)."""
+    section = re.search(rf"^\[{re.escape(source)}\]\n(.*?)(?=^\[|\Z)",
+                        build_log, re.S | re.M)
+    if section is None:
+        return
+    spills = [int(n) for n in re.findall(
+        r"(\d+) bytes spill (?:stores|loads)", section.group(1))]
+    if any(spills):
+        raise AssertionError(f"{source}: spills {spills}")
+
+
 def phase_build():
     from leaf_tpu_torch.ops._build import load_library
     lib = load_library()
@@ -348,8 +375,11 @@ def phase_build():
     _check_bf16_build(lib.build_log, "fused_frontend_bwd_bf16.cu", "bwd_bf16")
     log(f"[build] bwd_bf16 dynamic shared memory: "
         f"{lib.fused_bwd_bf16_smem_bytes()} bytes per block")
+    _check_no_spill(lib.build_log, "depthwise.cu")
     for name, path in lib.paths.items():
-        if name == "marks":      # empty phase-marker kernels: no tensor core
+        # the phase markers are empty kernels and the depthwise convs run
+        # on the f32 FMA units: no tensor core
+        if name in ("marks", "depthwise"):
             continue
         counts = _sass_counts(path)
         log(f"[build] {name} SASS tensor-core instructions: {counts}")
@@ -598,6 +628,113 @@ SWEEPS = {
 }
 
 
+# depthwise kernels vs the native grouped conv on the padded x, f32, TF32
+# off (tests/test_torch_port_cuda.py's bounds): the forward and dx sum
+# k² ≤ 25 products an entry in another order, DW_TOL of the tensor's
+# largest entry; dW sums up to B·OH·OW = 256 000 products an entry,
+# DW_GRAD_TOL of its largest entry
+DW_TOL, DW_GRAD_TOL = 1e-5, 2e-5
+# the sites as the classifier runs them (b0's, then AudioSet's 5 s clips:
+# b0's stem output at 64 filters x 500 frames and its stride-2 site), then
+# each transposed: the other axis takes each pad and each plan's tiling
+DW_MODEL_SITES = [s[:5] for s in dw_ab.B0_DW_SHAPES] + [(32, 250, 32, 3, 1),
+                                                       (32, 250, 96, 3, 2)]
+DW_SITES = DW_MODEL_SITES + [(w, h, c, k, s)
+                             for h, w, c, k, s in DW_MODEL_SITES]
+DW_B, DW_ITERS = 256, 10
+# the depthwise kernels' symbols as the profiler names them
+DW_SYMBOLS = {"depthwise_fwd": "depthwise_fwd<",
+              "depthwise_dgrad": "depthwise_dgrad<",
+              "depthwise_wgrad": "depthwise_wgrad<",
+              "depthwise_wgrad_sum": "depthwise_wgrad_sum"}
+
+
+def phase_depthwise(device) -> dict:
+    """The depthwise kernels against the native conv at b0's sites and
+    AudioSet's planes (B=256), as the classifier runs them and transposed,
+    the weight gradient bit-equal over two launches; then each pass's
+    device-busy ms at b0's sites (dw_ab's kernel table), the native conv's
+    beside it, and the kernels' share of the bytes bound. Returns the worst error of each
+    pass and the totals over the 16 sites."""
+    from leaf_tpu_torch.ops import depthwise
+    worst = {"fwd": 0.0, "dgrad": 0.0, "wgrad": 0.0}
+    for h, w, c, k, s in DW_SITES:
+        x, wt, dy = dw_ab.operands((h, w, c, k, s, 1), DW_B, torch.float32,
+                                   device, seed=h * 7 + c)
+        xr, wr = x.clone().requires_grad_(True), wt.clone().requires_grad_(True)
+        ref_y = depthwise.depthwise_reference(xr, wr, s)
+        ref = dict(zip(("dgrad", "wgrad"),
+                       torch.autograd.grad(ref_y, (xr, wr), dy)),
+                   fwd=ref_y.detach())
+        got = {"fwd": depthwise.depthwise_forward_cuda(x, wt, s),
+               "dgrad": depthwise.depthwise_dgrad_cuda(x, wt, dy, s),
+               "wgrad": depthwise.depthwise_wgrad_cuda(x, wt, dy, s)}
+        again = depthwise.depthwise_wgrad_cuda(x, wt, dy, s)
+        torch.cuda.synchronize()
+        _check_bit_equal("[depthwise]", f"dW {(h, w, c, k, s)}",
+                         (got["wgrad"],), (again,))
+        errs = {}
+        for name, tol in (("fwd", DW_TOL), ("dgrad", DW_TOL),
+                          ("wgrad", DW_GRAD_TOL)):
+            errs[name] = float((got[name] - ref[name]).abs().max()
+                               / ref[name].abs().max())
+            if not (bool(torch.isfinite(got[name]).all())
+                    and got[name].shape == ref[name].shape
+                    and errs[name] <= tol):
+                raise AssertionError(f"depthwise {name} at "
+                                     f"{(h, w, c, k, s)}: {errs[name]}")
+            worst[name] = max(worst[name], errs[name])
+        log(f"[depthwise] {(h, w, c, k, s)} B={DW_B}: max|d|/max|ref| fwd "
+            f"{errs['fwd']:.2e}, dx {errs['dgrad']:.2e} (tol {DW_TOL:g}), "
+            f"dW {errs['wgrad']:.2e} (tol {DW_GRAD_TOL:g}) -> ok")
+        del x, wt, dy, xr, wr, ref_y, ref, got, again
+    torch.cuda.empty_cache()
+    busy = dw_ab.busy_timer(device, DW_ITERS)
+    total = {c: 0.0 for c in dw_ab.KERNEL_COLS}
+    bound = 0.0
+    for i, (h, w, c, k, s, rep) in enumerate(dw_ab.B0_DW_SHAPES):
+        x, wt, dy = dw_ab.operands((h, w, c, k, s, rep), DW_B, torch.float32,
+                                   device, seed=i)
+        r = dw_ab.kernel_passes(x, wt, dy, s, busy)
+        b_ms = (depthwise.pass_bytes(DW_B, c, h, w, k, s)
+                / _measure.HBM_BYTES_PER_S * 1e3)
+        bound += b_ms * rep
+        for col in total:
+            total[col] += r[col] * rep
+        log(f"[depthwise] {(h, w, c, k, s)} x{rep} device-busy ms: "
+            + ", ".join(f"{col} {r[col]:.4f}" for col in dw_ab.KERNEL_COLS)
+            + f"; bound {b_ms:.4f}")
+        del x, wt, dy
+    log(f"[depthwise] b0's 16 sites, B={DW_B}: " + ", ".join(
+        f"{col} {v:.4f}" for col, v in total.items())
+        + f" ms; each pass's bytes bound {bound:.4f} ms (kernels' share: "
+        + ", ".join(f"{p} {bound / total['kernel_' + p]:.1%}"
+                    for p in ("fwd", "dx", "dw")) + ")")
+    return {"worst": worst, "total": total, "bound_ms": bound}
+
+
+def _dw_per_step(model, cfg) -> dict:
+    """Each depthwise kernel's launches in a train step of ``model``: one
+    of each at every depthwise ``Conv2dSame`` (b0's 16 MBConv blocks;
+    none in a ResNet), the forward twice under remat (its recompute)."""
+    from leaf_tpu_torch.models.common import Conv2dSame
+    sites = sum(1 for m in model.modules() if isinstance(m, Conv2dSame)
+                and m.groups == m.in_channels == m.out_channels > 1)
+    remat = bool(cfg["model"].get("remat"))
+    return {"depthwise_fwd": sites * (2 if remat else 1),
+            "depthwise_dgrad": sites, "depthwise_wgrad": sites}
+
+
+def _dw_counts() -> dict:
+    from leaf_tpu_torch.ops.depthwise import launch_counts
+    return launch_counts()
+
+
+def _zero_dw_counts() -> None:
+    from leaf_tpu_torch.ops.depthwise import reset_launch_counts
+    reset_launch_counts()
+
+
 def phase_smoke_leaf(device) -> None:
     """The forward smoke's primal launch and its output against 'off';
     the recipe sweeps' command lines (a stub ``python``)."""
@@ -789,9 +926,11 @@ def phase_train(device, state, bf16: bool = False):
     x, y = _batch(np.random.RandomState(5), TRAIN_B, device)
     gen = torch.Generator(device=device).manual_seed(5)
     _zero_counts()
+    _zero_dw_counts()
     metrics = [step(st, x, y, gen) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     counts = _counts()
+    dw_counts = _dw_counts()
     losses = [float(m["loss"]) for m in metrics]
     log(f"{tag} B={TRAIN_B} x 16000, {TRAIN_STEPS} steps (augment, "
         f"dropout 0.2, drop-connect 0.2 on): losses "
@@ -803,10 +942,19 @@ def phase_train(device, state, bf16: bool = False):
                   "bwd" + sfx: TRAIN_STEPS}:
         raise AssertionError(f"expected one saving-forward and one backward "
                              f"launch per step and no other, counted {counts}")
+    log(f"{tag} depthwise kernel launches {dw_counts} (16 sites a step)")
+    if dw_counts != {n: 16 * TRAIN_STEPS for n in dw_counts}:
+        raise AssertionError(f"expected 16 launches of each depthwise kernel "
+                             f"a step, counted {dw_counts}")
     _zero_counts()
+    _zero_dw_counts()
     out = make_eval_step()(st, x, y)
     torch.cuda.synchronize()
     eval_counts = _counts()
+    if _dw_counts() != {"depthwise_fwd": 16, "depthwise_dgrad": 0,
+                        "depthwise_wgrad": 0}:
+        raise AssertionError(f"eval forward: depthwise launches "
+                             f"{_dw_counts()}, want 16 forwards")
     log(f"{tag} eval forward: loss {float(out['loss']):.6f}, correct "
         f"{int(out['correct'])}/{int(out['count'])}, kernel launches "
         f"{eval_counts}")
@@ -1263,11 +1411,20 @@ def _multistep_check(device, state, cfg, sfx: str, tag: str,
     del twin, ref
     prof = _measure.device_profile(lambda: multi(st, *groups[2], gen))
     seen = {name: prof.count(sym) for name, sym in KERNEL_SYMBOLS.items()}
-    log(f"{tag}: profiler, one replay: {seen} kernel launches, device "
-        f"busy {prof.busy_ms:.3f} ms")
+    dw_seen = {name: prof.count(sym) for name, sym in DW_SYMBOLS.items()}
+    dw_want = _dw_per_step(st.model, cfg)
+    dw_want = {name: dw_want[name.removesuffix("_sum")] * k
+               for name in DW_SYMBOLS}
+    native = prof.count("conv_depthwise2d")
+    log(f"{tag}: profiler, one replay: {seen} kernel launches, depthwise "
+        f"{dw_seen}, native conv_depthwise2d {native:g}, device busy "
+        f"{prof.busy_ms:.3f} ms")
     if {name: v for name, v in seen.items() if v} != want:
         raise AssertionError(f"{tag}: the profiler saw {seen}, want "
                              f"{want} per replay")
+    if dw_seen != dw_want or native:
+        raise AssertionError(f"{tag}: depthwise kernels {dw_seen}, native "
+                             f"{native}; want {dw_want}, no native")
     return multi.per_replay
 
 
@@ -2697,6 +2854,7 @@ def main() -> int:
     max_abs_err = timed("parity", phase_parity, device)
     fwd_save_err, bwd_err = timed("parity-train", phase_parity_train, device)
     bf16_err = timed("parity-bf16", phase_parity_bf16, device)
+    dw = timed("depthwise", phase_depthwise, device)
     timed("smoke-leaf", phase_smoke_leaf, device)
     launches, server, state = timed("serving", phase_serving, device)
     bf16_launches, server_bf16 = timed("serving-bf16", phase_serving_bf16,
@@ -2780,6 +2938,15 @@ def main() -> int:
          "replaces": "leaf_tpu/ops/fused_frontend.py:422",
          "launches": bf16_counts["bwd_bf16"], "max_abs_err": bf16_err["bwd"],
          **_fields(timing["bwd_bf16"])},
+        *({"name": f"depthwise_conv2d_same_{p}", "route": "cuda",
+           "source": src + "depthwise.cu",
+           "replaces": "none (XLA's grouped conv in the JAX package)",
+           "max_rel_err": dw["worst"][op],
+           "ms_b0_sites": dw["total"]["kernel_" + c],
+           "native_ms_b0_sites": dw["total"]["native_" + c],
+           "bound_ms": dw["bound_ms"], "bound_by": "bytes"}
+          for p, op, c in (("fwd", "fwd", "fwd"), ("dgrad", "dgrad", "dx"),
+                           ("wgrad", "wgrad", "dw"))),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from leaf_tpu_torch.ops import depthwise
 from leaf_tpu_torch.parallel.sync_batch_norm import global_batch_norm
 
 __all__ = ["BatchNorm2d", "Conv2d", "Conv2dSame", "apply_keep",
@@ -112,9 +113,18 @@ class Conv2dSame(Conv2d):
     ``max((out−1)·stride + k − in, 0)`` splits as (total//2, total − total//2)
     — asymmetric for stride 2 (the 3×3/2 stem on a 40×100 image pads (0, 1)
     on both axes), which torch's symmetric ``padding=`` cannot express.
+
+    A depthwise conv (EfficientNet's MBConv; ``ops.depthwise.routes``) on
+    float32 operands (after ``_operands``: the bf16 mode's too) runs as
+    ``ops.depthwise.depthwise_conv2d_same``: the hand-written kernels on a
+    CUDA tensor, the same ``F.pad`` + ``F.conv2d`` as below on the CPU.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight, bias = self._operands(x)
+        if depthwise.routes(x, weight, self.stride, self.dilation,
+                            self.groups, bias):
+            return depthwise.depthwise_conv2d_same(x, weight, self.stride[0])
         pads = []
         for size, k, s in zip(reversed(x.shape[-2:]), reversed(self.kernel_size),
                               reversed(self.stride)):
@@ -122,7 +132,7 @@ class Conv2dSame(Conv2d):
             pads += [total // 2, total - total // 2]
         if any(pads):
             x = F.pad(x, pads)
-        return F.conv2d(*self._operands(x), self.stride, 0, self.dilation,
+        return F.conv2d(x, weight, bias, self.stride, 0, self.dilation,
                         self.groups)
 
 

@@ -27,18 +27,22 @@ __all__ = ["load_library", "BUILD_DIR", "SOURCES"]
 
 _HERE = Path(__file__).resolve().parent
 # library name → source: the forward kernels (primal and residual-saving)
-# and the backward kernel, in f32 (3×TF32) and in bf16, and the device
-# phase markers (``leaf_tpu_torch.tracing``)
+# and the backward kernel, in f32 (3×TF32) and in bf16, the device phase
+# markers (``leaf_tpu_torch.tracing``) and the depthwise convolutions
+# (``depthwise.py``)
 SOURCES = {"fwd": _HERE / "csrc" / "fused_frontend.cu",
            "bwd": _HERE / "csrc" / "fused_frontend_bwd.cu",
            "fwd_bf16": _HERE / "csrc" / "fused_frontend_bf16.cu",
            "bwd_bf16": _HERE / "csrc" / "fused_frontend_bwd_bf16.cu",
-           "marks": _HERE / "csrc" / "marks.cu"}
+           "marks": _HERE / "csrc" / "marks.cu",
+           "depthwise": _HERE / "csrc" / "depthwise.cu"}
 BUILD_DIR = _HERE / "build"
-# the fused kernels are sm_90a SASS (wgmma); the markers are sm_90 SASS
-# and portable PTX, which the driver compiles at load on any other card
-_ARCH = {"marks": ["-gencode", "arch=compute_90,code=sm_90",
-                   "-gencode", "arch=compute_75,code=compute_75"]}
+# the fused kernels are sm_90a SASS (wgmma); the markers and the depthwise
+# kernels are sm_90 SASS and portable PTX, which the driver compiles at load
+# on any other card
+_PORTABLE = ["-gencode", "arch=compute_90,code=sm_90",
+             "-gencode", "arch=compute_75,code=compute_75"]
+_ARCH = {"marks": _PORTABLE, "depthwise": _PORTABLE}
 _HOPPER = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -55,6 +59,11 @@ _SIGNATURES = {
                  "leaf_fused_bwd_bf16_smem_bytes": []},
     "marks": {"leaf_phase_mark": [_INT, _PTR],
               "leaf_phase_marks_load": []},
+    "depthwise": {"leaf_depthwise_fwd_f32": [_PTR] * 3 + [_INT] * 12 + [_PTR],
+                  "leaf_depthwise_dgrad_f32": [_PTR] * 3 + [_INT] * 12
+                  + [_PTR],
+                  "leaf_depthwise_wgrad_f32": [_PTR] * 4 + [_INT] * 14
+                  + [_PTR]},
 }
 
 

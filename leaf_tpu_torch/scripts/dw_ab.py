@@ -1,16 +1,31 @@
-"""A/B: cuDNN's grouped conv2d against a shift-multiply formulation of
+"""A/B: the native grouped conv2d against a shift-multiply formulation of
 EfficientNet-b0's depthwise convolutions, the counterpart of the JAX
-repo's ``scripts/dw_ab.py``.
+repo's ``scripts/dw_ab.py``, and the port's depthwise kernels
+(``ops/depthwise.py``) beside the native conv.
 
 A depthwise conv is k·k shifted elementwise multiply-adds; autograd of
 that form gives dx as shifted pads and dw as k·k multiply-reduces. For
 every depthwise site of b0 at the flagship input (B=256, 1 s at 16 kHz →
-the (100, 40) spectrogram; ``B0_DW_SHAPES``, NCHW as the port runs them,
-TF-SAME padding) this times both, forward and fwd+bwd (dx and dw for a
-fixed dY), in f32 and bf16, with CUDA events (``--iters`` launches after
-a warm-up), and the totals over the sites × their repeats. Each shape's
+the classifier's (40, 100) image, filters × frames; ``B0_DW_SHAPES``, NCHW
+as the port runs them, TF-SAME padding) this times both, forward and
+fwd+bwd (dx and dw for a fixed dY), in f32 and bf16, with CUDA events
+(``--iters`` launches after a warm-up), and the totals over the sites ×
+their repeats. Each shape's
 two forms are first held equal on 8 clips in f32 (forward, dx and dw to
 1e-4 absolute + 1e-3 relative, the JAX script's check).
+
+The kernels' table gives each pass at each site on its own: the forward
+(``fwd``),
+the input gradient (``dx``) and the weight gradient (``dw``) of the
+kernels (``kernel_*``) and of the native conv (``native_*``: F.pad and
+the grouped conv2d; the conv's input gradient and the pad's backward;
+the conv's weight gradient on the padded x), in device-busy ms per call
+(torch.profiler, ``--iters`` calls: the small sites' launches outrun the
+card, so CUDA events would time the host), beside the pass's bytes bound
+(``bound``: x and y, or dy and dx, or x and dy, once each at 3.35 TB/s)
+and the kernels' share of it. The kernels take f32 operands: the bf16
+table times them on the operands widened to f32, as the port's bf16 mode
+runs them (``Conv2d._operands``).
 
     python -m leaf_tpu_torch.scripts.dw_ab [--batch 256] [--iters 20]
         [--device cuda]
@@ -19,30 +34,32 @@ two forms are first held equal on 8 clips in f32 (forward, dx and dw to
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from leaf_tpu_torch.ops import depthwise
 from leaf_tpu_torch.scripts import _measure
 
 # (H, W, C, k, stride, repeats): every depthwise site of EfficientNet-b0
-# at the (100, 40) input (25 ms windows at a 10 ms hop → 100 frames, 40
-# filters), the stem's stride 2 applied
+# as the classifier runs it, on its (40, 100) image (40 filters × 100
+# frames: 25 ms windows at a 10 ms hop), the stem's stride 2 applied
 B0_DW_SHAPES = (
-    (50, 20, 32, 3, 1, 1),    # block 1
-    (50, 20, 96, 3, 2, 1),    # block 2 reduce
-    (25, 10, 144, 3, 1, 1),   # block 2
-    (25, 10, 144, 5, 2, 1),   # block 3 reduce
-    (13, 5, 240, 5, 1, 1),    # block 3
-    (13, 5, 240, 3, 2, 1),    # block 4 reduce
-    (7, 3, 480, 3, 1, 2),     # block 4
-    (7, 3, 480, 5, 1, 1),     # block 5 reduce (stride 1)
-    (7, 3, 672, 5, 1, 2),     # block 5
-    (7, 3, 672, 5, 2, 1),     # block 6 reduce
-    (4, 2, 1152, 5, 1, 3),    # block 6
-    (4, 2, 1152, 3, 1, 1),    # block 7
+    (20, 50, 32, 3, 1, 1),    # block 1
+    (20, 50, 96, 3, 2, 1),    # block 2 reduce
+    (10, 25, 144, 3, 1, 1),   # block 2
+    (10, 25, 144, 5, 2, 1),   # block 3 reduce
+    (5, 13, 240, 5, 1, 1),    # block 3
+    (5, 13, 240, 3, 2, 1),    # block 4 reduce
+    (3, 7, 480, 3, 1, 2),     # block 4
+    (3, 7, 480, 5, 1, 1),     # block 5 reduce (stride 1)
+    (3, 7, 672, 5, 1, 2),     # block 5
+    (3, 7, 672, 5, 2, 1),     # block 6 reduce
+    (2, 4, 1152, 5, 1, 3),    # block 6
+    (2, 4, 1152, 3, 1, 1),    # block 7
 )
 
 
@@ -116,6 +133,60 @@ def check_parity(shape, device, batch: int = 8, atol: float = 1e-4,
                                    msg=f"{what} at {shape}")
 
 
+KERNEL_COLS = ("kernel_fwd", "native_fwd", "kernel_dx", "native_dx",
+               "kernel_dw", "native_dw")
+
+
+def busy_timer(device, iters: int):
+    """``busy(fn)``: on the card the device-busy ms per call of ``iters``
+    calls under torch.profiler, each kernel's mean time a launch times its
+    launches a call (a session past a process's eighth can lose its first
+    kernel row, PERF.md §6); on the CPU one call (its path runs) and None
+    (no device time)."""
+    if torch.device(device).type == "cuda":
+        def busy(fn):
+            fn()
+            rows = _measure.device_profile(fn, n=iters).rows
+            return sum(ms / count * math.ceil(count - 1e-9)
+                       for _, count, ms in rows if count)
+        return busy
+
+    def once(fn):
+        fn()
+        return None
+    return once
+
+
+def kernel_passes(x, w, dy, stride: int, busy) -> dict:
+    """Each pass of the port's kernels and of the native conv on f32
+    operands (x, w and dy widened), timed by ``busy``."""
+    x, w, dy = x.float(), w.float(), dy.float()
+    k = w.shape[-1]
+    xp = _pad(x, k, stride)
+    if x.is_cuda:
+        fwd = lambda: depthwise.depthwise_forward_cuda(x, w, stride)  # noqa: E731
+        dx = lambda: depthwise.depthwise_dgrad_cuda(x, w, dy, stride)  # noqa: E731
+        dw = lambda: depthwise.depthwise_wgrad_cuda(x, w, dy, stride)  # noqa: E731
+    else:  # the ops' plain versions: the path runs, nothing is timed
+        fwd = lambda: depthwise.depthwise_fwd_op(x, w, stride)  # noqa: E731
+        dx = lambda: depthwise.depthwise_bwd_op(  # noqa: E731
+            x, w, dy, stride, True, False)
+        dw = lambda: depthwise.depthwise_bwd_op(  # noqa: E731
+            x, w, dy, stride, False, True)
+    return {
+        "kernel_fwd": busy(fwd),
+        "native_fwd": busy(lambda: dw_conv(x, w, stride)),
+        "kernel_dx": busy(dx),
+        "native_dx": busy(lambda: depthwise.depthwise_backward_reference(
+            x, w, dy, stride, True, False)),
+        "kernel_dw": busy(dw),
+        # autograd's weight gradient reads the x it padded in the forward
+        "native_dw": busy(lambda: torch.ops.aten.convolution_backward(
+            dy, xp, w, None, [stride, stride], [0, 0], [1, 1], False, [0, 0],
+            x.shape[1], [False, True, False])),
+    }
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m leaf_tpu_torch.scripts.dw_ab",
@@ -128,18 +199,38 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def _share(bound, ms):
+    return "n/a" if ms is None else f"{bound / ms:.1%}"
+
+
+def _print_passes(rows, total, batch: int, tag: str) -> None:
+    """The kernels' and the native conv's passes, each site and the
+    totals, against the bytes bound."""
+    print(f"{'site (H, W, C, k, s)':>26} " + " ".join(
+        f"{c:>11}" for c in KERNEL_COLS + ("bound_ms",))
+        + f"  kernel share of bound fwd/dx/dw   (device-busy ms, B={batch}, "
+        f"{tag}: f32 kernels)")
+    for row in rows + [dict(total, shape="TOTAL (x repeats)")]:
+        print(f"{str(row['shape']):>26} " + " ".join(
+            f"{'n/a' if row[c] is None else round(row[c], 4):>11}"
+            for c in KERNEL_COLS + ("bound_ms",)) + "  " + " / ".join(
+                _share(row["bound_ms"], row[c])
+                for c in ("kernel_fwd", "kernel_dx", "kernel_dw")))
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = _measure.open_device(args.device, "dw_ab")
     if device is None:
         return 1
     timed = _measure.event_timer(device, args.iters)
+    busy = busy_timer(device, args.iters)
     cols = ("conv_fwd", "shift_fwd", "conv_fwdbwd", "shift_fwdbwd")
     out = {}
     for shape in B0_DW_SHAPES:
         check_parity(shape, device)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        rows, total = [], {c: 0.0 for c in cols}
+        rows, total, bound = [], {c: 0.0 for c in cols + KERNEL_COLS}, 0.0
         print(f"{'shape (H, W, C, k, s)':>26} " + " ".join(
             f"{c:>12}" for c in cols) + f"   (ms, B={args.batch}, {tag})")
         for i, shape in enumerate(B0_DW_SHAPES):
@@ -150,9 +241,14 @@ def main(argv=None) -> int:
                      "shift_fwd": timed(lambda: dw_shift(x, w, s))}
             r["conv_fwdbwd"] = timed(lambda: grads(dw_conv, x, w, dy, s))
             r["shift_fwdbwd"] = timed(lambda: grads(dw_shift, x, w, dy, s))
-            for c in cols:
-                total[c] = (None if r[c] is None or total[c] is None
-                            else total[c] + r[c] * shape[5])
+            h, wd, c, k = shape[:4]
+            r.update(kernel_passes(x, w, dy, s, busy))
+            r["bound_ms"] = (depthwise.pass_bytes(args.batch, c, h, wd, k, s)
+                             / _measure.HBM_BYTES_PER_S * 1e3)
+            bound += r["bound_ms"] * shape[5]
+            for col in total:
+                total[col] = (None if r[col] is None or total[col] is None
+                              else total[col] + r[col] * shape[5])
             rows.append({"shape": list(shape[:5]), "repeats": shape[5], **r})
             print(f"{str(shape[:5]):>26} " + " ".join(
                 f"{'n/a' if r[c] is None else round(r[c], 4):>12}"
@@ -160,7 +256,8 @@ def main(argv=None) -> int:
         print(f"{'TOTAL (x repeats)':>26} " + " ".join(
             f"{'n/a' if total[c] is None else round(total[c], 4):>12}"
             for c in cols))
-        out[tag] = {"shapes": rows, "total": total}
+        _print_passes(rows, dict(total, bound_ms=bound), args.batch, tag)
+        out[tag] = {"shapes": rows, "total": total, "bound_ms": bound}
     _measure.emit({"metric": "dw_ab", "batch": args.batch,
                    "iters": args.iters, **out, **_measure.card(device)})
     return 0

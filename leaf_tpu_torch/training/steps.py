@@ -270,8 +270,10 @@ class TrainMultistep:
     optimizer comes from ``optimization_helper(..., capturable=True)``. A
     capture that fails raises: there is no fallback to eager steps.
 
-    The kernel wrappers do not count a replay's launches. ``per_replay``
-    holds the launches one replay makes (by ``launch_counts`` name),
+    The kernel wrappers (the fused frontend's and ``ops.depthwise``'s)
+    count neither the capture's launches nor a replay's. ``per_replay``
+    holds the fused frontend kernels' launches one replay makes (by
+    ``launch_counts`` name),
     ``replays`` the replays so far, and ``graph_launch_counts()`` their
     product; ``pool_bytes`` is the size of the graph's private memory
     pool (the K steps' activations, reused from step to step). The graph
@@ -343,7 +345,7 @@ class TrainMultistep:
                 "count": sum(m["count"] for m in out)}
 
     def _capture(self, state, xs, ys, generator):
-        from leaf_tpu_torch.ops.fused_frontend import KERNELS, launch_counts
+        from leaf_tpu_torch.ops import depthwise, fused_frontend
         groups = state.optimizer.param_groups
         if not all(g.get("capturable") and torch.is_tensor(g["lr"])
                    and g["lr"].device == xs.device for g in groups):
@@ -363,7 +365,8 @@ class TrainMultistep:
             graph.register_generator_state(generator)
         # the graph's markers: built and loaded now, outside the capture
         tracing._load_marks(xs.device)
-        before = launch_counts()
+        before = fused_frontend.launch_counts()
+        before_dw = depthwise.launch_counts()
         # thread_local: the host feeder thread may pin and copy meanwhile
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = []
@@ -385,11 +388,13 @@ class TrainMultistep:
             if tuple(seg.get("segment_pool_id", ())) == pool)
         # the wrappers ran (and counted) while the capture recorded their
         # launches; those launches run at each replay, not at the capture
-        after = launch_counts()
+        after = fused_frontend.launch_counts()
         self.per_replay = {n: after[n] - before[n] for n in after
                            if after[n] != before[n]}
-        for name, fn in KERNELS.items():
-            fn.launches = before[name]
+        for counted, kernels in ((before, fused_frontend.KERNELS),
+                                 (before_dw, depthwise.KERNELS)):
+            for name, fn in kernels.items():
+                fn.launches = counted[name]
         self._graph = graph
 
     def _replay(self, state, xs, ys):

@@ -35,6 +35,7 @@ from leaf_tpu_torch.data import loader
 from leaf_tpu_torch.data.audio import write_wav
 from leaf_tpu_torch.frontend import Leaf
 from leaf_tpu_torch.ops import fused_frontend as fused
+from leaf_tpu_torch.scripts.dw_ab import B0_DW_SHAPES
 from leaf_tpu_torch.serving import ServingModel
 
 K = 401
@@ -1196,3 +1197,179 @@ def test_smoke_leaf_on_card(cuda_device, capsys):
     lo, hi, mean = (float(v) for v in out.split("min/max/mean:")[1].split())
     assert (lo, hi, mean) == (float(got.min()), float(got.max()),
                               float(got.mean()))
+
+
+# ------------------------------------------------ depthwise conv kernels
+# ops/csrc/depthwise.cu against the native grouped conv on the padded x
+# (F.conv2d(F.pad(...), groups=C), its autograd for dx and dW), f32, TF32
+# off (the native depthwise kernels take no TF32 either). Tolerances: the
+# forward and dx sum k² (≤ 25) products per entry in another order than
+# the native kernels: 1e-5 of the tensor's largest entry (≈ 80 f32 ulps of
+# it); dW sums up to B·OH·OW = 256 000 products per entry (per-thread
+# partial sums, a butterfly, the chunks in order): 2e-5 of the largest
+# entry (measured ≤ 2.1e-6 against the native one and ≤ 4.9e-7 against a
+# float64 sum on the H100; the native one reads ≤ 1.9e-6 there).
+DW_TOL, DW_GRAD_TOL = 1e-5, 2e-5
+# b0's 12 sites (dw_ab.B0_DW_SHAPES) and AudioSet's 5 s planes (b0's
+# stem output at 64 filters x 500 frames, stride 1 and its stride-2 site),
+# as the classifier runs them, then each transposed: the other axis takes
+# each pad and each plan's tiling
+DW_MODEL_SITES = [s[:5] for s in B0_DW_SHAPES] + [(32, 250, 32, 3, 1),
+                                                  (32, 250, 96, 3, 2)]
+DW_SITES = DW_MODEL_SITES + [(w, h, c, k, s)
+                             for h, w, c, k, s in DW_MODEL_SITES]
+
+
+def _dw_operands(h, w, c, k, s, device, b=256, seed=0):
+    from leaf_tpu_torch.ops import depthwise as dw
+    rng = np.random.RandomState(seed)
+    g = dw.geometry(h, w, k, s)
+    x = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32))
+    wt = torch.from_numpy((rng.randn(c, 1, k, k) * 0.2).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(b, c, g.oh, g.ow).astype(np.float32))
+    return x.to(device), wt.to(device), dy.to(device)
+
+
+def _dw_native(x, wt, dy, s):
+    import torch.nn.functional as F
+
+    from leaf_tpu_torch.ops import depthwise as dw
+    xr, wr = x.detach().requires_grad_(True), wt.detach().requires_grad_(True)
+    g = dw.geometry(x.shape[2], x.shape[3], wt.shape[-1], s)
+    y = F.conv2d(F.pad(xr, (g.pl, g.pr, g.pt, g.pb)), wr, stride=s,
+                 groups=x.shape[1])
+    dx, dwt = torch.autograd.grad(y, (xr, wr), dy)
+    return y.detach(), dx, dwt
+
+
+def _close_to_max(got, ref, tol):
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("site", DW_SITES, ids=[str(s) for s in DW_SITES])
+def test_depthwise_kernels_match_native(cuda_device, site):
+    from leaf_tpu_torch.ops import depthwise as dw
+    h, w, c, k, s = site
+    x, wt, dy = _dw_operands(h, w, c, k, s, cuda_device)
+    y_ref, dx_ref, dw_ref = _dw_native(x, wt, dy, s)
+    before = dw.launch_counts()
+    y = dw.depthwise_forward_cuda(x, wt, s)
+    dx = dw.depthwise_dgrad_cuda(x, wt, dy, s)
+    dwt = dw.depthwise_wgrad_cuda(x, wt, dy, s)
+    torch.cuda.synchronize()
+    assert dw.launch_counts() == {n: v + 1 for n, v in before.items()}
+    _close_to_max(y, y_ref, DW_TOL)
+    _close_to_max(dx, dx_ref, DW_TOL)
+    _close_to_max(dwt, dw_ref, DW_GRAD_TOL)
+
+
+def test_depthwise_weight_gradient_is_deterministic(cuda_device):
+    from leaf_tpu_torch.ops import depthwise as dw
+    for site in ((20, 50, 32, 3, 1), (2, 4, 1152, 5, 1), (32, 250, 96, 3, 2)):
+        h, w, c, k, s = site
+        x, wt, dy = _dw_operands(h, w, c, k, s, cuda_device, seed=1)
+        first = dw.depthwise_wgrad_cuda(x, wt, dy, s)
+        assert torch.equal(first, dw.depthwise_wgrad_cuda(x, wt, dy, s))
+        assert torch.equal(dw.depthwise_forward_cuda(x, wt, s),
+                           dw.depthwise_forward_cuda(x, wt, s))
+
+
+def test_depthwise_autograd_runs_the_kernels(cuda_device):
+    # the conv under autograd goes through the ops, whose CUDA
+    # implementations launch the kernels: the wrappers' bits, one launch
+    # of each
+    from leaf_tpu_torch.ops import depthwise as dw
+    x, wt, dy = _dw_operands(10, 25, 144, 5, 2, cuda_device, b=16, seed=2)
+    xr, wr = x.clone().requires_grad_(True), wt.clone().requires_grad_(True)
+    before = dw.launch_counts()
+    y = dw.depthwise_conv2d_same(xr, wr, 2)
+    y.backward(dy)
+    assert dw.launch_counts() == {n: v + 1 for n, v in before.items()}
+    assert torch.equal(y.detach(), dw.depthwise_forward_cuda(x, wt, 2))
+    assert torch.equal(xr.grad, dw.depthwise_dgrad_cuda(x, wt, dy, 2))
+    assert torch.equal(wr.grad, dw.depthwise_wgrad_cuda(x, wt, dy, 2))
+    with torch.no_grad():
+        assert torch.equal(dw.depthwise_conv2d_same(x, wt, 2), y.detach())
+
+
+def test_depthwise_wrapper_refusals(cuda_device):
+    from leaf_tpu_torch.ops import depthwise as dw
+    x, wt, dy = _dw_operands(13, 5, 8, 3, 1, cuda_device, b=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        dw.depthwise_forward_cuda(x.transpose(2, 3), wt, 1)
+    with pytest.raises(TypeError, match="float32"):
+        dw.depthwise_forward_cuda(x.bfloat16(), wt.bfloat16(), 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        dw.depthwise_forward_cuda(x, wt.cpu(), 1)
+    with pytest.raises(ValueError, match="k, stride"):
+        dw.depthwise_forward_cuda(x, wt, 3)
+    with pytest.raises(ValueError, match="dy must be"):
+        dw.depthwise_dgrad_cuda(x, wt, dy[:, :, :-1].contiguous(), 1)
+
+
+def test_depthwise_ops_pass_opcheck_on_card(cuda_device):
+    from leaf_tpu_torch.ops import depthwise as dw
+    for k, s in dw.SUPPORTED:
+        x, wt, dy = _dw_operands(9, 6, 3, k, s, cuda_device, b=2)
+        torch.library.opcheck(torch.ops.leaf_tpu_torch.depthwise_fwd,
+                              (x, wt, s))
+        for need in ((True, True), (True, False), (False, True)):
+            torch.library.opcheck(torch.ops.leaf_tpu_torch.depthwise_bwd,
+                                  (x, wt, dy, s, *need))
+
+
+DW_SYMBOLS = {"depthwise_fwd": "depthwise_fwd<",
+              "depthwise_dgrad": "depthwise_dgrad<",
+              "depthwise_wgrad": "depthwise_wgrad<",
+              "depthwise_wgrad_sum": "depthwise_wgrad_sum"}
+
+
+def test_multistep_replay_runs_the_depthwise_kernels(cuda_device):
+    # a K = 4 graph of b0 train steps: the K eager steps of the first call
+    # launch each depthwise kernel 16 times a step (the capture's launches
+    # are not counted, as the fused kernels' are not), and one profiled
+    # replay runs 16·K of each and no native conv_depthwise2d kernel
+    from leaf_tpu_torch.data import leaf_device_augment
+    from leaf_tpu_torch.ops import depthwise as dw
+    from leaf_tpu_torch.scripts._measure import device_profile
+    from leaf_tpu_torch.training import make_train_multistep
+    k = 4
+    st = _small_state(cuda_device, True)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    multi = make_train_multistep(k, augment_fn=leaf_device_augment)
+    rng = np.random.RandomState(3)
+    xs = torch.from_numpy((rng.randn(k, 8, 16000) * 0.1)
+                          .astype(np.float32)).to(cuda_device)
+    ys = torch.from_numpy(rng.randint(0, 5, (k, 8))).to(cuda_device)
+    dw.reset_launch_counts()
+    multi(st, xs, ys, gen)
+    torch.cuda.synchronize()
+    assert dw.launch_counts() == {n: 16 * k for n in dw.KERNELS}
+    prof = device_profile(lambda: multi(st, xs, ys, gen))
+    assert dw.launch_counts() == {n: 16 * k for n in dw.KERNELS}
+    seen = {n: prof.count(sym) for n, sym in DW_SYMBOLS.items()}
+    assert seen == {n: 16 * k for n in DW_SYMBOLS}, seen
+    assert prof.count("conv_depthwise2d") == 0
+    assert not [r for r in prof.rows if "depthwise" in r[0].lower()
+                and "leaf_tpu_torch" not in r[0]]
+
+
+def test_artifact_runs_the_depthwise_kernels_on_card(cuda_device, tmp_path):
+    # torch.export records the op through its fake implementation; the
+    # loaded program launches the forward kernel at each of b0's 16 sites
+    from leaf_tpu_torch.models import Classifier
+    from leaf_tpu_torch.ops import depthwise as dw
+    from leaf_tpu_torch.serving import save_exported
+    model = Classifier(SMALL, generator=torch.Generator().manual_seed(0))
+    manifest = save_exported(str(tmp_path), SMALL,
+                             state_dict=model.state_dict(), batch_sizes=(4,))
+    program = torch.export.load(str(tmp_path / manifest["files"]["4"]))
+    targets = [str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("leaf_tpu_torch.depthwise_fwd.default") == 16
+    art = ServingModel.load(str(tmp_path))
+    before = dw.depthwise_forward_cuda.launches
+    art((np.random.RandomState(4).randn(4, 16000) * 0.1).astype(np.float32))
+    assert dw.depthwise_forward_cuda.launches == before + 16

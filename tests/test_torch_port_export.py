@@ -187,6 +187,22 @@ def test_artifact_matches_live_and_jax(exported, requests, n):
     assert _rel(got, jax_ref) < JAX_TOL, _rel(got, jax_ref)
 
 
+def test_artifact_records_the_depthwise_op(exported):
+    """Each of b0's 16 MBConv depthwise convs is the custom op in the
+    exported program (its fake implementation traced it), and none is a
+    grouped aten convolution; the stem and the 1×1 convs stay aten's."""
+    out, manifest, _, _ = exported
+    program = torch.export.load(os.path.join(out, manifest["files"]["4"]))
+    calls = [n for n in program.graph.nodes if n.op == "call_function"]
+    targets = [str(n.target) for n in calls]
+    assert targets.count("leaf_tpu_torch.depthwise_fwd.default") == 16
+    # aten.conv2d(input, weight, bias, stride, padding, dilation, groups):
+    # the stem, 15 expand and 16 project convs and the head
+    groups = [n.args[6] if len(n.args) > 6 else n.kwargs.get("groups", 1)
+              for n in calls if str(n.target).startswith("aten.conv2d")]
+    assert len(groups) == 1 + 15 + 16 + 1 and set(groups) == {1}, groups
+
+
 def test_wrong_length_raises(exported):
     _, _, art, _ = exported
     with pytest.raises(ValueError, match=str(SR)):

@@ -280,8 +280,8 @@ def test_port_imports_no_jax():
     assert {"streaming.py", "serving.py", "export_serving.py",
             "histograms.py", "steps.py", "msgpack_lite.py",
             "pack_dataset.py", "pretrained.py", "synthetic_convergence.py",
-            "import_torch_classifier.py", "convert_torch_checkpoint.py"} <= {
-                p.name for p in sources}
+            "import_torch_classifier.py", "convert_torch_checkpoint.py",
+            "depthwise.py"} <= {p.name for p in sources}
     # the measurement tools, each the counterpart of a JAX scripts/ file
     tools = {"_measure", "step_profile", "serving_latency",
              "streaming_latency", "kernel_microbench", "kernel_profile",
