@@ -1,8 +1,9 @@
 """The classifier zoo, in PyTorch: efficientnet, resnet (with NetVLAD),
-cifar_resnet and densenet, the LEAF ``Classifier`` wrapper, and the
+cifar_resnet, densenet and AST, the LEAF ``Classifier`` wrapper, and the
 weight interop (reference checkpoints, published backbones, JAX
 variables)."""
 
+from leaf_tpu_torch.models.ast import ASTModel
 from leaf_tpu_torch.models.classifier import Classifier, get_classifier
 from leaf_tpu_torch.models.efficientnet import (EfficientNet,
                                                 efficientnet_params)
@@ -14,6 +15,7 @@ from leaf_tpu_torch.models.torch_import import import_torch_classifier
 __all__ = [
     "Classifier",
     "get_classifier",
+    "ASTModel",
     "EfficientNet",
     "efficientnet_params",
     "NetVLAD",

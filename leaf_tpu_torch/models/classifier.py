@@ -1,4 +1,5 @@
-"""End-to-end audio classifier: LEAF frontend → 1-channel CNN backbone.
+"""End-to-end audio classifier: LEAF frontend → 1-channel backbone (a CNN,
+or AST's transformer).
 
 Parity with the JAX package's ``leaf_tpu.models.classifier`` (and the
 reference's models/classifier.py:7-18): the frontend emits (B, frames,
@@ -11,7 +12,7 @@ and so on.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -19,6 +20,7 @@ from torch import nn
 from leaf_tpu_torch import resolve_device, tracing
 from leaf_tpu_torch.frontend.helper import compute_dtype_of, get_frontend
 from leaf_tpu_torch.models import cifar_resnet, densenet, resnet
+from leaf_tpu_torch.models.ast import ASTModel, ast_options
 from leaf_tpu_torch.models.efficientnet import VALID_MODELS, EfficientNet
 
 __all__ = ["Classifier", "get_classifier"]
@@ -39,15 +41,20 @@ def _factory(table: dict, depth, arch: str):
 
 
 def get_classifier(opt: dict, device=None,
-                   generator: Optional[torch.Generator] = None) -> nn.Module:
+                   generator: Optional[torch.Generator] = None,
+                   image: Optional[Tuple[int, int]] = None) -> nn.Module:
     """Backbone factory (reference: models/model_helper.py:8-95), as the
     JAX package's ``get_classifier`` dispatches.
 
     ``opt`` is the config's ``model`` section: arch ∈ {densenet, resnet,
-    cifar_resnet, efficientnet}, model_depth, num_classes, pool (resnet
-    18/34/50 only), compute_dtype (every arch), dropout_rate,
-    drop_connect_rate and remat (efficientnet only). Builds on ``device``
-    (CUDA unless one is named), drawing the weights from ``generator``.
+    cifar_resnet, efficientnet, ast}, model_depth, num_classes, pool
+    (resnet 18/34/50 only), compute_dtype (every arch; ast float32 only),
+    dropout_rate, drop_connect_rate and remat (efficientnet only), and
+    AST's sizes (``models.ast.ast_options``; the port's own arch, which
+    the JAX package lacks). ``image`` is the (n_filters, frames) size of
+    the frontend's image, which AST's token grid is built for (default
+    AST's 128 × 1024); the CNNs take any. Builds on ``device`` (CUDA
+    unless one is named), drawing the weights from ``generator``.
     """
     num_classes = opt["num_classes"]
     arch = opt["arch"]
@@ -65,6 +72,10 @@ def get_classifier(opt: dict, device=None,
     if arch == "cifar_resnet":
         make = _factory(_CIFAR_RESNETS, opt["model_depth"], "cifar_resnet")
         return make(num_classes=num_classes, **kw)
+    if arch == "ast":
+        if image is not None:
+            kw["input_fdim"], kw["input_tdim"] = image
+        return ASTModel(num_classes=num_classes, **ast_options(opt), **kw)
     if arch != "efficientnet":
         raise ValueError(f"Unsupported value {arch} for opt['arch']")
     variant = opt["model_depth"]  # e.g. 'b0'
@@ -91,7 +102,12 @@ class Classifier(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.features = get_frontend(cfg, device, generator)
-        self.model = get_classifier(cfg["model"], device, generator)
+        ac = cfg.get("audio_config", {})
+        clip = int(float(ac.get("random_clip_size", 2.5))
+                   * int(ac.get("sample_rate", 16000)))
+        # frames under SAME padding: ceil(clip / stride)
+        image = (self.features.n_filters, -(-clip // self.features.stride))
+        self.model = get_classifier(cfg["model"], device, generator, image)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -25,10 +25,15 @@ __global__ void mark_backbone() {}
 __global__ void mark_backbone_grad() {}
 __global__ void mark_backward() {}
 __global__ void mark_update() {}
+// tracing.ATTENTION_MARKS: around an attention core (AST's blocks)
+__global__ void mark_attention() {}
+__global__ void mark_attention_end() {}
+__global__ void mark_attention_grad() {}
+__global__ void mark_attention_grad_end() {}
 
 }  // namespace leaf_tpu_torch
 
-// Load the seven kernels now. CUDA loads a module's kernels lazily, at
+// Load the eleven kernels now. CUDA loads a module's kernels lazily, at
 // their first launch, and a marker's first launch is usually inside a CUDA
 // graph capture. On the H100, after such a first load while CUPTI traced
 // the process, every later profiler window of the process read one device
@@ -41,7 +46,9 @@ extern "C" int leaf_phase_marks_load() {
       (const void*)mark_step, (const void*)mark_forward,
       (const void*)mark_frontend, (const void*)mark_backbone,
       (const void*)mark_backbone_grad, (const void*)mark_backward,
-      (const void*)mark_update};
+      (const void*)mark_update, (const void*)mark_attention,
+      (const void*)mark_attention_end, (const void*)mark_attention_grad,
+      (const void*)mark_attention_grad_end};
   cudaFuncAttributes attr;
   for (const void* k : kernels) {
     cudaError_t err = cudaFuncGetAttributes(&attr, k);
@@ -50,8 +57,8 @@ extern "C" int leaf_phase_marks_load() {
   return 0;
 }
 
-// Launch marker `which` (its index in tracing.MARKS) on `stream`; returns
-// the launch's CUDA error code.
+// Launch marker `which` (its index in tracing.MARKS + ATTENTION_MARKS) on
+// `stream`; returns the launch's CUDA error code.
 extern "C" int leaf_phase_mark(int which, void* stream) {
   using namespace leaf_tpu_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -63,6 +70,10 @@ extern "C" int leaf_phase_mark(int which, void* stream) {
     case 4: mark_backbone_grad<<<1, 1, 0, s>>>(); break;
     case 5: mark_backward<<<1, 1, 0, s>>>(); break;
     case 6: mark_update<<<1, 1, 0, s>>>(); break;
+    case 7: mark_attention<<<1, 1, 0, s>>>(); break;
+    case 8: mark_attention_end<<<1, 1, 0, s>>>(); break;
+    case 9: mark_attention_grad<<<1, 1, 0, s>>>(); break;
+    case 10: mark_attention_grad_end<<<1, 1, 0, s>>>(); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -9,23 +9,33 @@ caller runs (the train CLI's ``--profile_dir``, ``training.loggers
   names are ``SPANS``; they mark the host's work of a serving request
   (prepare, h2d, forward, fetch), the consumer's waits on an empty
   ``prefetch_to_device`` queue and the launch of a CUDA graph replay.
-- ``mark(name, x)`` and ``boundary(x)``: device phase markers, empty
-  kernels (``ops/csrc/marks.cu``, one block of one thread) launched on
-  the current stream of x's device, whose names (``MARKS``) show in the
-  device trace on the device's clock, inside CUDA graph replays too.
-  ``boundary`` is the identity between the frontend and the backbone:
-  its forward marks ``mark_frontend``, its backward ``mark_backbone_grad``.
+- ``mark(name, x)``, ``boundary(x)`` and ``attention(core, q, k, v)``:
+  device phase markers, empty kernels (``ops/csrc/marks.cu``, one block
+  of one thread) launched on the current stream of x's device, whose
+  names (``MARKS``, ``ATTENTION_MARKS``) show in the device trace on the
+  device's clock, inside CUDA graph replays too. ``boundary`` is the
+  identity between the frontend and the backbone: its forward marks
+  ``mark_frontend``, its backward ``mark_backbone_grad``.
 
 A marker launches only on a CUDA tensor, never while ``torch.compile`` or
 ``torch.export`` traces (an exported program holds no marker), and then
 always while the current stream is capturing a CUDA graph (a graph is
 captured once and its replays cannot change) and otherwise only while a
 profiler is enabled. So eager code launches nothing extra with tracing
-off, and a captured train step holds its seven markers on every replay.
+off, and a captured train step holds its seven markers (and an AST's 4
+a block) on every replay.
 Where the marker library cannot be built or loaded (no nvcc), the
 markers are off on that device, with one warning.
 Markers touch no tensor: values and gradients are bit for bit those of
 an unmarked run.
+
+``attention(core, q, k, v)`` runs an attention core between the four
+markers of ``ATTENTION_MARKS`` (AST's blocks, ``models/ast.py``):
+``mark_attention`` before it (at the q, k and v views), and
+``mark_attention_end`` after it (at the merged heads); in the backward
+``mark_attention_grad`` when the gradient reaches the core's output and
+``mark_attention_grad_end`` when it leaves through q, k and v. They are a
+tuple of their own: ``MARKS`` stays the seven of every train step.
 
 The markers of a train step, in launch order: ``mark_step`` (the step's
 start, before the augment), ``mark_forward`` (``Classifier.forward``),
@@ -46,7 +56,8 @@ import warnings
 
 import torch
 
-__all__ = ["span", "mark", "boundary", "SPANS", "MARKS"]
+__all__ = ["span", "mark", "boundary", "attention", "SPANS", "MARKS",
+           "ATTENTION_MARKS"]
 
 SPANS = ("leaf_tpu_torch.serve.prepare", "leaf_tpu_torch.serve.h2d",
          "leaf_tpu_torch.serve.forward", "leaf_tpu_torch.serve.fetch",
@@ -54,7 +65,11 @@ SPANS = ("leaf_tpu_torch.serve.prepare", "leaf_tpu_torch.serve.h2d",
 MARKS = ("mark_step", "mark_forward", "mark_frontend", "mark_backbone",
          "mark_backbone_grad", "mark_backward", "mark_update")
 
-_MARK_INDEX = {name: i for i, name in enumerate(MARKS)}
+ATTENTION_MARKS = ("mark_attention", "mark_attention_end",
+                   "mark_attention_grad", "mark_attention_grad_end")
+
+# a marker's index in the library's switch (ops/csrc/marks.cu)
+_MARK_INDEX = {name: i for i, name in enumerate(MARKS + ATTENTION_MARKS)}
 _NO_SPAN = contextlib.nullcontext()
 # the C flag: a profiler started through torch._C._autograd directly
 # leaves torch.autograd.profiler's Python flag False
@@ -113,7 +128,8 @@ def _launch(name: str, x: torch.Tensor) -> None:
 
 
 def mark(name: str, x: torch.Tensor) -> None:
-    """Launch the device marker ``name`` (one of ``MARKS``) on the current
+    """Launch the device marker ``name`` (of ``MARKS`` or
+    ``ATTENTION_MARKS``) on the current
     stream of x's device, under the rules above; a no-op on the CPU."""
     if _marking(x):
         _launch(name, x)
@@ -141,3 +157,43 @@ def boundary(x: torch.Tensor) -> torch.Tensor:
     if not _marking(x):
         return x
     return _Boundary.apply(x)
+
+
+class _AttentionIn(torch.autograd.Function):
+    """The identity on (q, k, v); marks ``mark_attention`` in its forward
+    and ``mark_attention_grad_end`` when their gradients come back."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        _launch("mark_attention", q)
+        return q.view_as(q), k.view_as(k), v.view_as(v)
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        mark("mark_attention_grad_end", dq)
+        return dq, dk, dv
+
+
+class _AttentionOut(torch.autograd.Function):
+    """The identity on the core's output; marks ``mark_attention_end`` in
+    its forward and ``mark_attention_grad`` when the gradient reaches
+    it."""
+
+    @staticmethod
+    def forward(ctx, out):
+        _launch("mark_attention_end", out)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mark("mark_attention_grad", grad)
+        return grad
+
+
+def attention(core, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """``core(q, k, v)`` between the attention markers (``ATTENTION_MARKS``,
+    under the rules above): values and gradients are ``core``'s own."""
+    if not _marking(q):
+        return core(q, k, v)
+    return _AttentionOut.apply(core(*_AttentionIn.apply(q, k, v)))

@@ -578,6 +578,15 @@ SMALL = {"frontend": {"name": "leaf", "n_filters": 16},
                  "scheduler": "warmupcosine", "warmup_epochs": 1}}
 
 
+# AST (models/ast.py) behind the same Leaf: 1 s clips give 100 frames,
+# 16 filters one row of 9 patches; d 128 in 2 heads of 64
+AST_SMALL = {**SMALL, "audio_config": {"sample_rate": 16000,
+                                       "random_clip_size": 1},
+             "model": {"arch": "ast", "num_classes": 5, "fstride": 10,
+                       "tstride": 10, "embed_dim": 128, "depth": 2,
+                       "num_heads": 2, "mlp_ratio": 4}}
+
+
 @pytest.mark.parametrize("bf16", [False, True])
 def test_ops_pass_opcheck_on_card(cuda_device, bf16):
     x, gabor, windows = _operands(2, 3000, 40, cuda_device)
@@ -603,7 +612,8 @@ def _small_state(device, capturable, cfg=SMALL):
     return TrainState(model, opt, sched)
 
 
-def _replay_against_eager(device, bf16, k=3, process_group=None):
+def _replay_against_eager(device, bf16, k=3, process_group=None,
+                          cfg=SMALL):
     """A replay of a K-step graph (K = 3) and K eager steps from copies of
     the same state and generator state (augment, dropout and drop-connect
     on, B=8; the data-parallel steps with a ``process_group``). Returns
@@ -615,11 +625,10 @@ def _replay_against_eager(device, bf16, k=3, process_group=None):
 
     from leaf_tpu_torch.data import leaf_device_augment
     from leaf_tpu_torch.training import make_train_multistep, make_train_step
-    cfg = SMALL
     if bf16:
-        cfg = {**SMALL, "frontend": {**SMALL["frontend"],
-                                     "compute_dtype": "bfloat16"},
-               "model": {**SMALL["model"], "compute_dtype": "bfloat16"}}
+        cfg = {**cfg, "frontend": {**cfg["frontend"],
+                                   "compute_dtype": "bfloat16"},
+               "model": {**cfg["model"], "compute_dtype": "bfloat16"}}
     sfx = "_bf16" if bf16 else ""
     st = _small_state(device, True, cfg)
     gen = torch.Generator(device=device).manual_seed(3)
@@ -898,6 +907,138 @@ def test_multistep_replay_marks_its_phases(cuda_device, frontend):
     print(f"{frontend}: phases {got['phases']:.1f} of {got['busy']:.1f} "
           f"device-busy us")
     assert 0.95 * got["busy"] <= got["phases"] <= got["busy"]
+
+
+def test_ast_matches_the_reference_on_card(cuda_device):
+    # AST at a small size (d 192, 2 blocks, 3 heads of 64, 32 filters,
+    # 2 s clips: 2 × 19 patches + 2 tokens, B 4) against the benchmark's
+    # plain reference (leafbench/reference/ast.py: matmul → softmax →
+    # matmul in f32 SGEMMs) on its seeded weights: the logits and the BCE
+    # loss's gradient of every parameter. The port's attention is SDPA's
+    # f32 kernel and its Leaf the fused kernels, both on the tensor cores
+    # in 3×TF32 (≈ 2^-22 a product): logits to 1e-4 of their largest;
+    # each gradient to 1e-3 of its largest entry (d_bank sums B·T
+    # products, ≈ 1e-5 of its norm in 3×TF32)
+    from leaf_tpu_torch.models import Classifier
+    from leafbench import inputs
+    from leafbench.reference import ast as ref_ast
+    from leafbench.reference.classifier import Classifier as RefClassifier
+    cfg = {**AST_SMALL, "frontend": {"name": "leaf", "n_filters": 32},
+           "audio_config": {"sample_rate": 16000, "random_clip_size": 2},
+           "model": {**AST_SMALL["model"], "embed_dim": 192,
+                     "num_heads": 3, "num_classes": 527}}
+    # the reference reads its image from the model section, as AST's
+    # constructor; the port derives it from n_filters and the clip
+    ref = RefClassifier({**cfg, "model": {**cfg["model"], "input_fdim": 32,
+                                          "input_tdim": 200}},
+                        device=cuda_device)
+    weights = inputs.make_weights(ref, 21, ref_ast.weight_std)
+    port = Classifier(cfg, device=cuda_device)
+    port.load_state_dict(weights)
+    x = torch.from_numpy(inputs.tone_clips(3, 4, 32000, 16000, "cpu")).to(
+        cuda_device)
+    y = (torch.rand(4, 527, generator=torch.Generator().manual_seed(0))
+         < 0.01).float().to(cuda_device)
+    out = []
+    for model in (ref, port):
+        model.train().zero_grad(set_to_none=True)
+        logits = model(x)
+        torch.nn.functional.binary_cross_entropy_with_logits(
+            logits, y).backward()
+        out.append((logits.detach(), {n: p.grad for n, p in
+                                      model.named_parameters()}))
+    (a, ga), (b, gb) = out
+    gap = float((a - b).abs().max() / a.abs().max())
+    worst = max((float((g - gb[n]).abs().max() / g.abs().max()), n)
+                for n, g in ga.items())
+    print(f"AST on card: logit gap {gap:.3e}, worst gradient {worst}")
+    assert gap <= 1e-4
+    assert worst[0] <= 1e-3, worst
+
+
+def test_ast_multistep_graph_matches_eager_steps(cuda_device):
+    # the K = 4 graph of AST steps (SDPA's kernels captured) replayed
+    # against 4 eager steps from copies of the same state and generator
+    # state, held as test_multistep_graph_matches_eager_steps holds b0's
+    got, ref, st, twin, p0, gen, tgen, _, again = _replay_against_eager(
+        cuda_device, False, k=4, cfg=AST_SMALL)
+    ref_loss = torch.stack([m["loss"] for m in ref]).mean()
+    torch.testing.assert_close(got["loss"], ref_loss, atol=0, rtol=1e-5)
+    assert int(got["correct"]) == sum(int(m["correct"]) for m in ref)
+    replay = _update_rel(st, twin, p0)
+    noise = _update_rel(again(), twin, p0)
+    bound = max(REPLAY_FLOOR, REPLAY_NOISE_MULT * noise)
+    print(f"AST replay vs eager {replay:.4e}, eager vs eager {noise:.4e}, "
+          f"bound {bound:.4e}")
+    assert replay < bound, (replay, noise)
+    assert gen.get_state().equal(tgen.get_state())
+
+
+def _ast_marked_replay():
+    """In a fresh process: a K = 4 graph of AST train steps (12 blocks),
+    one replay under the profiler. Prints one JSON line: the markers in
+    device order and the device-busy µs inside the attention cores and
+    in all."""
+    from torch.autograd import DeviceType
+
+    from leaf_tpu_torch.data import leaf_device_augment
+    from leaf_tpu_torch.scripts._measure import profile_window
+    from leaf_tpu_torch.training import make_train_multistep
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, k = torch.device("cuda"), 4
+    cfg = {**AST_SMALL, "model": {**AST_SMALL["model"], "depth": 12}}
+    st = _small_state(dev, True, cfg)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    multi = make_train_multistep(k, augment_fn=leaf_device_augment)
+    rng = np.random.RandomState(3)
+    xs = torch.from_numpy((rng.randn(k, 8, 16000) * 0.1)
+                          .astype(np.float32)).to(dev)
+    ys = torch.from_numpy(rng.randint(0, 5, (k, 8))).to(dev)
+    multi(st, xs, ys, gen)           # K eager steps and the capture
+    torch.cuda.synchronize()
+    prof = profile_window(lambda: multi(st, xs, ys, gen), 1)
+    rows = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    marks = sorted((e.time_range.start, e.time_range.end,
+                    _MARK.search(e.name).group(1)) for e in rows
+                   if _MARK.search(e.name))
+    rows = [(e.time_range.start, e.time_range.end) for e in rows]
+    at, cores = {}, 0.0
+    for s, e, m in marks:
+        at[m] = (s, e)
+        if m in ("mark_attention_end", "mark_attention_grad_end"):
+            opened = at["mark_attention" if m == "mark_attention_end"
+                        else "mark_attention_grad"]
+            cores += _busy_us(rows, opened[1], s)
+    print(json.dumps({
+        "marks": [m for _, _, m in marks], "cores": cores,
+        "busy": _busy_us(rows, min(s for s, _ in rows),
+                         max(e for _, e in rows))}))
+
+
+def test_ast_replay_marks_its_attention_cores(cuda_device):
+    # one K = 4 replay of 12-block AST steps: each step's seven markers
+    # with each block's forward core bracketed between mark_frontend and
+    # mark_backbone and its backward core (blocks in reverse) between
+    # mark_backbone and mark_backbone_grad: 12 × 4 attention markers a
+    # step. In a fresh process, as test_multistep_replay_marks_its_phases
+    from leaf_tpu_torch import tracing
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, "-c", "import tests.test_torch_port_cuda as t; "
+         "t._ast_marked_replay()"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    fwd, bwd = tracing.ATTENTION_MARKS[:2], tracing.ATTENTION_MARKS[2:]
+    m = tracing.MARKS
+    step = (list(m[:3]) + list(fwd) * 12 + [m[3]] + list(bwd) * 12
+            + list(m[4:]))
+    assert got["marks"] == step * 4
+    print(f"attention cores {got['cores']:.1f} of {got['busy']:.1f} "
+          f"device-busy us")
+    assert 0 < got["cores"] < got["busy"]
 
 
 def test_checkpoint_crosses_capturable_modes(cuda_device, tmp_path):

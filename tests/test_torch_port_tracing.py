@@ -63,8 +63,10 @@ def test_names():
     assert all(s.startswith("leaf_tpu_torch.") for s in tracing.SPANS)
     assert tracing.MARKS[0] == "mark_step" and \
         tracing.MARKS[-1] == "mark_update"
-    assert sorted(tracing.__all__) == ["MARKS", "SPANS", "boundary", "mark",
+    assert sorted(tracing.__all__) == ["ATTENTION_MARKS", "MARKS", "SPANS",
+                                       "attention", "boundary", "mark",
                                        "span"]
+    assert len(set(tracing.MARKS + tracing.ATTENTION_MARKS)) == 11
 
 
 def test_span_off_enters_no_profiler_op(monkeypatch, weights):
