@@ -823,7 +823,7 @@ def phase_serving(device):
     _zero_counts()
     outs = {n: server(requests[n]) for n in REQUEST_SIZES}
     torch.cuda.synchronize()
-    counts = _counts()
+    counts = _served_counts(server)
     launches = counts["fwd"]
     forwards = sum(-(-n // BUCKETS[-1]) for n in REQUEST_SIZES)
     log(f"[serving] requests {REQUEST_SIZES} -> {forwards} bucket forwards, "
@@ -874,7 +874,7 @@ def phase_serving_bf16(device):
     _zero_counts()
     outs = {n: server(requests[n]) for n in REQUEST_SIZES}
     torch.cuda.synchronize()
-    counts = _counts()
+    counts = _served_counts(server)
     forwards = sum(-(-n // BUCKETS[-1]) for n in REQUEST_SIZES)
     log(f"[serving-bf16] requests {REQUEST_SIZES} -> {forwards} bucket "
         f"forwards, kernel launches {counts}")
@@ -899,6 +899,13 @@ def phase_serving_bf16(device):
 def _counts() -> dict:
     from leaf_tpu_torch.ops.fused_frontend import launch_counts
     return launch_counts()
+
+
+def _served_counts(server) -> dict:
+    """``_counts()`` plus the launches of ``server``'s CUDA graph replays,
+    which the wrappers do not count (they count each bucket's warm-up)."""
+    replayed = server.graph_launch_counts()
+    return {n: c + replayed.get(n, 0) for n, c in _counts().items()}
 
 
 def _zero_counts() -> None:
@@ -1269,7 +1276,7 @@ def phase_export(device, state, leaf, tmp):
         _zero_counts()
         outs = {n: art(requests[n]) for n in REQUEST_SIZES}
         torch.cuda.synchronize()
-        counts = _counts()
+        counts = _served_counts(art)
         launches[dtype] = counts["fwd" + sfx]
         worst = 0.0
         for n in REQUEST_SIZES:
@@ -1899,7 +1906,7 @@ def phase_zoo_serving(device, tmp):
         _zero_counts()
         outs = {n: server(requests[n]) for n in REQUEST_SIZES}
         torch.cuda.synchronize()
-        counts = _counts()
+        counts = _served_counts(server)
         log(f"{tag}: requests {REQUEST_SIZES} -> {forwards} bucket "
             f"forwards, kernel launches {counts}")
         if counts != {**_no_launches(), "fwd" + sfx: forwards}:
@@ -1940,7 +1947,7 @@ def phase_zoo_serving(device, tmp):
     _zero_counts()
     outs = {n: art(requests[n]) for n in REQUEST_SIZES}
     torch.cuda.synchronize()
-    counts = _counts()
+    counts = _served_counts(art)
     worst = max(float(np.abs(outs[n] - live(requests[n])).max()
                       / np.abs(outs[n]).max()) for n in REQUEST_SIZES)
     log(f"[zoo] resnet-18 export: buckets {BUCKETS} in {t_export:.1f} s; "

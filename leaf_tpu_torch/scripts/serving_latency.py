@@ -16,7 +16,10 @@ program, the two in turns (live, artifact, artifact, live):
 - ``idle_share`` of the median, ``kernels_per_request``, the fused
   frontend kernel's device ms, and ``top_host_ops``: the host ops by
   self CPU time per request, the first split of where an artifact's
-  extra host time goes.
+  extra host time goes;
+- ``replays`` (by bucket) and ``graph_launch_counts``: the server's CUDA
+  graph replays so far and the wrapper launches they made (empty on the
+  CPU, where nothing is captured).
 
 One JSON line per bucket (and mode).
 
@@ -54,7 +57,7 @@ def measure_request(server, x: np.ndarray, device, wall_reps: int = 30,
            "wall_ms_p90": float(np.percentile(walls, 90)),
            "clips_per_sec_busy": None, "idle_share": None,
            "kernels_per_request": None, "fused_frontend_ms": None,
-           "top_kernels": [], "top_host_ops": []}
+           "top_kernels": [], "top_host_ops": [], **_graph_counts(server)}
     if torch.device(device).type != "cuda":
         return rec
     prof = _measure.device_profile(call, trace_execs, host_ms=p50)
@@ -68,7 +71,13 @@ def measure_request(server, x: np.ndarray, device, wall_reps: int = 30,
     rec["top_host_ops"] = [
         {"name": n, "count": c, "self_cpu_ms": m}
         for n, c, m in _measure.host_profile(call, trace_execs, host_top)]
+    rec.update(_graph_counts(server))
     return rec
+
+
+def _graph_counts(server) -> dict:
+    return {"replays": {str(b): n for b, n in server.replays.items()},
+            "graph_launch_counts": server.graph_launch_counts()}
 
 
 def in_turns(servers: dict, x: np.ndarray, device, wall_reps: int = 30,
@@ -94,7 +103,9 @@ def describe(tag: str, rec: dict) -> str:
     if rec["device_busy_ms"] is None:
         return line + "; device time not measured"
     line += (f"; device busy {rec['device_busy_ms']:.3f} ms per request "
-             f"({rec['kernels_per_request']:.0f} kernels), idle "
+             f"({rec['kernels_per_request']:.0f} kernels; graph replays "
+             f"{rec['replays']}, their launches "
+             f"{rec['graph_launch_counts']}), idle "
              f"{rec['idle_share']:.1%}; fused frontend kernel "
              f"{rec['fused_frontend_ms']:.3f} ms")
     ops = ", ".join(f"{o['name'][:40]} {o['self_cpu_ms']:.3f}"

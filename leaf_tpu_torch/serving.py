@@ -14,6 +14,11 @@ logits. The model behind the buckets is either
   ``leaf_tpu_torch.ops`` before it loads one. An artifact runs only on the
   device type it was exported for.
 
+On a CUDA device each bucket's forward is a CUDA graph, captured at the
+bucket's first use and replayed from a static input buffer after it (the
+JAX package's one jitted program per bucket); on the CPU the module or
+program is called directly.
+
 Streaming: ``save_exported_streaming`` exports the ``StreamingLeafCell``
 of the roles ``first``, ``steady`` and ``flush_0`` for a fixed
 (chunk_size, n_streams); ``StreamingServingModel.load`` drives them with
@@ -27,8 +32,10 @@ remainder).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import threading
 from collections.abc import Mapping
 from typing import Optional, Sequence
 
@@ -77,6 +84,29 @@ class ServingModel:
     Weights come from exactly one of ``state_dict`` (the port's own) or
     ``jax_variables`` (a JAX ``{"params", "batch_stats"}`` tree). Runs on
     ``device`` — CUDA unless one is named.
+
+    On CUDA, a bucket's first chunk is copied into the bucket's static
+    input buffer and runs the forward eagerly on a side stream (the
+    warm-up, whose logits it returns); then the forward is captured into
+    a CUDA graph for the bucket's shape ``(b, clip_samples)``, and every
+    later chunk of that bucket is copied into the buffer and replays the
+    graph. A capture that fails raises: there is no eager fallback. A
+    bucket no request reaches captures nothing. One lock per bucket
+    holds the copy, the replay and the logits' fetch together, so
+    threads may share a model.
+
+    The graph reads the parameters' and buffers' storage: an in-place
+    update (``load_state_dict`` on ``model``,
+    ``models.common.set_batch_norm_stats_``) is seen by the next replay;
+    a parameter or buffer rebound to a new tensor is not.
+
+    The kernel wrappers (the fused frontend's and ``ops.depthwise``'s)
+    count the warm-up's launches, not the capture's or a replay's.
+    ``replays`` holds the replays so far by bucket, ``per_replay`` the
+    wrapper launches one replay of a bucket makes (by ``launch_counts``
+    name), ``graph_launch_counts()`` their products summed over the
+    buckets, and ``pool_bytes`` the size of the graphs' memory pools.
+    All stay empty (0) on the CPU.
     """
 
     def __init__(self, cfg: dict, *, state_dict: Optional[Mapping] = None,
@@ -97,6 +127,7 @@ class ServingModel:
         self._forward = {b: self.model for b in self.batch_sizes}
         self.clip_samples = int(clip_samples
                                 or cfg["audio_config"]["sample_rate"])
+        self._init_graphs()
 
     @classmethod
     def load(cls, path: str, device=None) -> "ServingModel":
@@ -112,7 +143,29 @@ class ServingModel:
                          for b, name in manifest["files"].items()}
         self.batch_sizes = sorted(self._forward)
         self.clip_samples = int(manifest["clip_samples"])
+        self._init_graphs()
         return self
+
+    def _init_graphs(self):
+        cuda = self.device.type == "cuda"
+        self._locks = {b: threading.Lock() if cuda
+                       else contextlib.nullcontext()
+                       for b in self.batch_sizes}
+        self._capture_lock = threading.Lock()
+        self._inputs = {}   # bucket → static input buffer
+        self._graphs = {}   # bucket → (CUDA graph, its static logits)
+        self.replays: dict = {}
+        self.per_replay: dict = {}
+        self.pool_bytes = 0
+
+    def graph_launch_counts(self) -> dict:
+        """The wrapper launches the replays made, by ``launch_counts``
+        name: ``per_replay`` × ``replays``, summed over the buckets."""
+        out: dict = {}
+        for b, counts in self.per_replay.items():
+            for name, n in counts.items():
+                out[name] = out.get(name, 0) + n * self.replays[b]
+        return out
 
     def _bucket(self, n: int) -> int:
         for b in self.batch_sizes:
@@ -127,9 +180,12 @@ class ServingModel:
         The host's work is split into the spans ``leaf_tpu_torch.serve.*``
         (``tracing``): ``prepare`` (the request's conversion and check,
         then each chunk's slice and padding), ``h2d`` (the chunk's copy to
-        the device; host-synchronous from pageable memory), ``forward``
-        (the dispatch of the bucket's forward) and ``fetch`` (the logits
-        to the host, and the request's concatenation)."""
+        the device, on CUDA into the bucket's static input buffer;
+        host-synchronous from pageable memory), ``forward`` (the dispatch
+        of the bucket's forward: on CUDA the launch of its graph's replay,
+        or at the bucket's first chunk the warm-up and the capture) and
+        ``fetch`` (the logits to the host, and the request's
+        concatenation)."""
         with tracing.span("leaf_tpu_torch.serve.prepare"):
             x = torch.as_tensor(np.asarray(waveforms, dtype=np.float32))
             if x.ndim != 2 or x.shape[1] != self.clip_samples:
@@ -146,14 +202,76 @@ class ServingModel:
                     if take < b:
                         chunk = torch.nn.functional.pad(
                             chunk, (0, 0, 0, b - take))
-                with tracing.span("leaf_tpu_torch.serve.h2d"):
-                    chunk = chunk.to(self.device, non_blocking=True)
-                with tracing.span("leaf_tpu_torch.serve.forward"):
-                    logits = self._forward[b](chunk)
-                with tracing.span("leaf_tpu_torch.serve.fetch"):
-                    outs.append(logits[:take].float().cpu().numpy())
+                with self._locks[b]:
+                    with tracing.span("leaf_tpu_torch.serve.h2d"):
+                        chunk = self._to_device(b, chunk)
+                    with tracing.span("leaf_tpu_torch.serve.forward"):
+                        logits = self._run(b, chunk)
+                    with tracing.span("leaf_tpu_torch.serve.fetch"):
+                        outs.append(logits[:take].float().cpu().numpy())
         with tracing.span("leaf_tpu_torch.serve.fetch"):
             return np.concatenate(outs, axis=0)
+
+    def _to_device(self, b: int, chunk: torch.Tensor) -> torch.Tensor:
+        """The padded chunk on the device: on CUDA copied into the
+        bucket's static input buffer (from pageable memory, so the copy
+        is host-synchronous as ``.to`` is)."""
+        if self.device.type != "cuda":
+            return chunk.to(self.device, non_blocking=True)
+        if b not in self._inputs:
+            self._inputs[b] = torch.empty(chunk.shape, dtype=chunk.dtype,
+                                          device=self.device)
+        return self._inputs[b].copy_(chunk, non_blocking=True)
+
+    def _run(self, b: int, x: torch.Tensor) -> torch.Tensor:
+        """The bucket's logits of ``x``: the module or program on the
+        CPU; on CUDA the warm-up and the capture at the bucket's first
+        chunk, a replay of its graph after."""
+        if self.device.type != "cuda":
+            return self._forward[b](x)
+        if b in self._graphs:
+            graph, logits = self._graphs[b]
+            graph.replay()
+            self.replays[b] += 1
+            return logits
+        # one capture at a time: the wrappers' launch counters are shared
+        with self._capture_lock, torch.cuda.device(self.device):
+            return self._warm_up_and_capture(b, x)
+
+    def _warm_up_and_capture(self, b: int, x: torch.Tensor) -> torch.Tensor:
+        from leaf_tpu_torch.ops import depthwise, fused_frontend
+        forward = self._forward[b]
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            warm = forward(x)
+        current.wait_stream(side)
+        # the graph's markers: built and loaded now, outside the capture
+        tracing._load_marks(self.device)
+        before = {**fused_frontend.launch_counts(),
+                  **depthwise.launch_counts()}
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: other threads may copy and replay meanwhile
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            logits = forward(x)
+        pool = tuple(graph.pool())
+        self.pool_bytes += sum(
+            seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool)
+        # the wrappers counted the capture's launches, which run at each
+        # replay and not at the capture
+        after = {**fused_frontend.launch_counts(),
+                 **depthwise.launch_counts()}
+        self.per_replay[b] = {n: after[n] - before[n] for n in after
+                              if after[n] != before[n]}
+        for kernels in (fused_frontend.KERNELS, depthwise.KERNELS):
+            for name, fn in kernels.items():
+                fn.launches = before[name]
+        self._graphs[b] = (graph, logits)
+        self.replays[b] = 0
+        return warm
 
 
 def save_exported(out_dir: str, cfg: dict, *,

@@ -1084,7 +1084,12 @@ def test_artifact_runs_the_kernel_on_card(cuda_device, tmp_path):
     x = (np.random.RandomState(4).randn(6, 16000) * 0.1).astype(np.float32)
     before = fused.fused_forward_cuda.launches
     got = art(x)
-    assert fused.fused_forward_cuda.launches == before + 2
+    # chunks of 4 and 2 clips at bucket 4: the first runs eagerly (the
+    # graph's warm-up, counted by the wrapper), the second replays the
+    # graph captured after it (counted by the model)
+    assert art.replays == {4: 1}
+    assert (fused.fused_forward_cuda.launches - before
+            + art.graph_launch_counts()["fwd"]) == 2
     ref = live(x)
     assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
     with pytest.raises(ValueError, match="exported for 'cuda'"):
@@ -1514,3 +1519,181 @@ def test_artifact_runs_the_depthwise_kernels_on_card(cuda_device, tmp_path):
     before = dw.depthwise_forward_cuda.launches
     art((np.random.RandomState(4).randn(4, 16000) * 0.1).astype(np.float32))
     assert dw.depthwise_forward_cuda.launches == before + 16
+
+
+# ---------------------------------------------- ServingModel's CUDA graphs
+
+GRAPH_BUCKETS = (8, 64, 256)
+
+
+@pytest.fixture(scope="module")
+def graph_weights():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the graphs are CUDA graphs")
+    from leaf_tpu_torch.models import Classifier
+    from leaf_tpu_torch.models.common import set_batch_norm_stats_
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Classifier(SMALL, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        set_batch_norm_stats_(model.eval(), next(_operands(
+            64, 16000, 40, torch.device("cuda"), seed=7)))
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+@pytest.fixture(scope="module")
+def graph_artifact(graph_weights, tmp_path_factory):
+    from leaf_tpu_torch.serving import save_exported
+    out = tmp_path_factory.mktemp("graph_artifact")
+    save_exported(str(out), SMALL, state_dict=graph_weights,
+                  batch_sizes=GRAPH_BUCKETS)
+    return str(out)
+
+
+def _graph_server(kind, weights, artifact):
+    if kind == "live":
+        return ServingModel(SMALL, state_dict=weights,
+                            batch_sizes=GRAPH_BUCKETS)
+    return ServingModel.load(artifact)
+
+
+def _clips(n, seed):
+    return (np.random.RandomState(seed).randn(n, 16000) * 0.1
+            ).astype(np.float32)
+
+
+def _eager(server, x):
+    """Each chunk of ``x`` through the server's module or program, called
+    eagerly at its bucket: the answer without a graph."""
+    outs = []
+    with torch.inference_mode():
+        for start in range(0, len(x), GRAPH_BUCKETS[-1]):
+            chunk = torch.from_numpy(x[start:start + GRAPH_BUCKETS[-1]])
+            take = chunk.shape[0]
+            b = server._bucket(take)
+            chunk = torch.nn.functional.pad(chunk, (0, 0, 0, b - take))
+            outs.append(server._forward[b](chunk.to(server.device))[:take]
+                        .cpu().numpy())
+    return np.concatenate(outs)
+
+
+def _same(got, ref):
+    # bit for bit where the same kernels run, else 1e-6 of max|logit|
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max(), float(
+        np.abs(got - ref).max() / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("kind", ["live", "loaded"])
+def test_serving_graph_replays_the_eager_forward(graph_weights,
+                                                 graph_artifact, kind):
+    from leaf_tpu_torch.ops import depthwise as dw
+    server = _graph_server(kind, graph_weights, graph_artifact)
+    fwd, dwf = fused.fused_forward_cuda.launches, \
+        dw.depthwise_forward_cuda.launches
+    got = {}
+    for b in GRAPH_BUCKETS:
+        x, y = _clips(b, seed=b), _clips(b, seed=b + 1)
+        got[b] = (server(x), server(x), server(y))  # warm-up, replay, replay
+    # the wrappers counted each bucket's warm-up only; the replays are
+    # counted by the model, one primal launch and b0's 16 depthwise sites
+    assert fused.fused_forward_cuda.launches - fwd == len(GRAPH_BUCKETS)
+    assert dw.depthwise_forward_cuda.launches - dwf == 16 * len(
+        GRAPH_BUCKETS)
+    assert server.replays == {b: 2 for b in GRAPH_BUCKETS}
+    assert server.per_replay == {b: {"fwd": 1, "depthwise_fwd": 16}
+                                 for b in GRAPH_BUCKETS}
+    assert server.graph_launch_counts() == {
+        "fwd": 2 * len(GRAPH_BUCKETS),
+        "depthwise_fwd": 32 * len(GRAPH_BUCKETS)}
+    assert server.pool_bytes > 0
+    for b in GRAPH_BUCKETS:
+        ref_x = _eager(server, _clips(b, seed=b))
+        ref_y = _eager(server, _clips(b, seed=b + 1))
+        warm, again, other = got[b]
+        _same(warm, ref_x)
+        _same(again, ref_x)
+        _same(other, ref_y)
+        assert not np.allclose(other, again)
+
+
+@pytest.mark.parametrize("kind", ["live", "loaded"])
+def test_serving_graph_chunks_a_large_request(graph_weights, graph_artifact,
+                                              kind):
+    # 300 clips: a chunk of 256, then 44 padded to the 64 bucket
+    server = _graph_server(kind, graph_weights, graph_artifact)
+    x = _clips(300, seed=300)
+    first, again = server(x), server(x)
+    assert server.replays == {64: 1, 256: 1}
+    ref = _eager(server, x)
+    _same(first, ref)
+    _same(again, ref)
+
+
+@pytest.mark.parametrize("kind", ["live", "loaded"])
+def test_serving_graph_sees_in_place_batch_norm_updates(
+        graph_weights, graph_artifact, kind):
+    from leaf_tpu_torch.models import Classifier
+    from leaf_tpu_torch.models.common import set_batch_norm_stats_
+    server = _graph_server(kind, graph_weights, graph_artifact)
+    x = _clips(64, seed=64)
+    server(x)
+    before = server(x)                       # a replay
+    other = Classifier(SMALL).eval()
+    other.load_state_dict(graph_weights)
+    with torch.no_grad():
+        set_batch_norm_stats_(other, next(_operands(
+            64, 16000, 40, torch.device("cuda"), seed=8)))
+    stats = {k: v for k, v in other.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    for module in ({server.model} if kind == "live"
+                   else set(server._forward.values())):
+        bufs = dict(module.named_buffers())
+        assert set(stats) <= set(bufs)
+        with torch.no_grad():
+            for k, v in stats.items():
+                bufs[k].copy_(v)
+    after = server(x)                        # a replay on the new stats
+    assert server.replays == {64: 2}
+    ref = _eager(server, x)
+    _same(after, ref)
+    assert np.abs(after - before).max() > 1e-3 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("kind", ["live", "loaded"])
+def test_serving_graph_threads_get_their_own_logits(graph_weights,
+                                                    graph_artifact, kind):
+    server = _graph_server(kind, graph_weights, graph_artifact)
+    # one caller's requests at buckets 8 and 64, the other's at 64 and 300
+    # clips (256 + 64): both race on the first captures and then share the
+    # 64 bucket's buffers
+    requests = [[_clips(8, 11), _clips(64, 12)],
+                [_clips(64, 13), _clips(300, 14)]]
+    want = [[_eager(server, x) for x in reqs] for reqs in requests]
+    got, errors = [[], []], []
+
+    def caller(i):
+        try:
+            for j in range(12):
+                got[i].append((j % 2, server(requests[i][j % 2])))
+        except Exception as e:  # noqa: BLE001  (reported below)
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=caller, args=(i,))
+                   for i in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert errors == []
+    for i in (0, 1):
+        assert len(got[i]) == 12
+        for j, out in got[i]:
+            _same(out, want[i][j])
+    assert server.replays == {8: 5, 64: 17, 256: 5}
